@@ -1,4 +1,4 @@
-"""TPU-native differentiable progressive path tracer.
+"""Differentiable progressive path tracer in JAX.
 
 A from-scratch JAX/Pallas re-design of the feature set of
 Mourtz/Photorealistic-Rendering-using-OpenCL (an interactive OpenCL

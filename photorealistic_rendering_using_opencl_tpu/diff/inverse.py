@@ -64,8 +64,8 @@ def fit_scene(cfg: SceneConfig, scene: SceneData, cam, width: int,
     MC gradient unbiased across the trajectory.
 
     ``method="regen_scan"`` runs the differentiable path-regeneration
-    driver (3x the fwd+bwd rate of "scan" at the bench shape, PERF.md
-    round-5): the iteration budget is calibrated ONCE on the initial
+    driver (fewer iterations than "scan": lanes regenerate as paths
+    die): the iteration budget is calibrated ONCE on the initial
     scene with ``regen_margin`` headroom, so optimization trajectories
     that lengthen paths substantially (e.g. albedos driven toward 1)
     can under-run the budget -- partial radiance is still banked, but

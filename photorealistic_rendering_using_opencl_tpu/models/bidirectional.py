@@ -1,4 +1,4 @@
-"""Bidirectional path tracing, TPU-native (batched subpaths, no scatters).
+"""Bidirectional path tracing, batched (whole subpath populations, no scatters).
 
 The reference ships an EMPTY ``kernels/integrators/bidirectional.cl`` and
 lists BDPT as future work (README.md:57); this module implements it.  The

@@ -53,11 +53,8 @@ DIMS_PER_BOUNCE = 16
 
 # bounces per inner segment of the differentiable nested scan; deep budgets
 # compile as outer-scan-of-SCAN_CHUNK-step-scans (a flat 32-step
-# differentiated scan blows up remote XLA compile time).  Env-overridable
-# for sweeps (tools/regen_scan_probe.py); 8 won the recorded sweep
-# (PERF.md round-4).
-import os as _os
-SCAN_CHUNK = int(_os.environ.get("PRT_SCAN_CHUNK", "8"))
+# differentiated scan multiplies XLA compile time)
+SCAN_CHUNK = 8
 
 
 class PathState(NamedTuple):
@@ -108,7 +105,7 @@ def gather_material(cfg: SceneConfig, scene: SceneData, mesh_id
     The four float fields are packed into one [K(+1), 10] row table --
     [color | eta | k | roughness] with the OBJ material as the last row --
     so the whole fetch is ONE ``fetch_float_rows`` call whose backward is
-    a single MXU matmul (see above); the int fields (no gradients) keep
+    a single one-hot matmul (see above); the int fields (no gradients) keep
     the plain select chain.
     """
     k_obj = scene.mat_type.shape[0]
@@ -272,10 +269,9 @@ def shade_step(cfg: SceneConfig, scene: SceneData, state: PathState,
         alpha = jnp.where(missed & primary, 0.0, alpha)
     elif cfg.has_env_map:
         # statically skipped when no env map exists: the 1x1 black
-        # placeholder contributed exactly zero radiance while its bilinear
-        # lookup's TRANSPOSE cost four full-lane [N,3]->[1,1,3] scatters
-        # per iteration (~9 ms/iter = 14% of the whole fwd+bwd frame at
-        # 512^2, tools/bwd_trace.py round-5)
+        # placeholder contributes exactly zero radiance while its bilinear
+        # lookup's TRANSPOSE costs four full-lane [N,3]->[1,1,3] scatters
+        # per iteration
         env = envmap.radiance(scene.env_map, state.direction)
         w_env = 1.0
         if cfg.env_nee:
@@ -457,11 +453,11 @@ def bounce_step(cfg: SceneConfig, scene: SceneData, state: PathState,
     per NEE batch.  The production drivers (``trace``/``trace_regen``)
     instead pipeline ``shade_step`` with the merged
     ``intersect_and_shadow`` dispatch.  Same estimator in exact
-    arithmetic; on TPU brute-mesh scenes the production drivers
-    additionally thread the previous bounce's self-exclusion into the
-    closest-hit dispatch, which this single-bounce wrapper cannot (no
-    previous bounce), so grazing TPU self-hits can differ at the
-    _validate_winner backstop level.  Tools/tests only.
+    arithmetic; on brute-mesh scenes the production drivers additionally
+    thread the previous bounce's self-exclusion into the closest-hit
+    dispatch, which this single-bounce wrapper cannot (no previous
+    bounce), so grazing self-hits can differ at the _validate_winner
+    backstop level.  Tools/tests only.
     """
     hit = tag_hit(intersect_scene(cfg, scene, state.origin, state.direction,
                                   active=state.alive))

@@ -238,7 +238,7 @@ def trace_regen(cfg: SceneConfig, scene: SceneData, cam_pytree,
                 return_iters: bool = False):
     """Path-regeneration render loop (forward only) over a pixel slice.
 
-    TPU-shaped version of the reference's own execution model (main.cl:
+    Wavefront version of the reference's own execution model (main.cl:
     122-136: persistent per-pixel path state, terminated paths restart on
     the next launch): each lane owns one pixel, traces its samples
     back-to-back, and banks radiance into a per-lane accumulator -- no
@@ -281,8 +281,8 @@ def trace_regen_scan(cfg: SceneConfig, scene: SceneData, cam_pytree,
     """Reverse-differentiable path regeneration: the same loop body as
     ``trace_regen`` run as a FIXED-length chunked ``lax.scan``.
 
-    This is the round-4 answer to the differentiable path's occupancy gap
-    (VERDICT r3 next #1): ``integrator.trace(method="scan")`` advances all
+    This closes the differentiable path's occupancy gap:
+    ``integrator.trace(method="scan")`` advances all
     lanes through the full ``max_bounces + scatter`` budget per sample
     (cornell: 32+ steps while most paths die by ~8 under RR), whereas this
     driver keeps every lane busy on its NEXT sample the moment a path
@@ -293,7 +293,7 @@ def trace_regen_scan(cfg: SceneConfig, scene: SceneData, cam_pytree,
     (the forward while-loop's measured trip count plus margin, rounded to
     ``SCAN_CHUNK``).  With sufficient ``n_iters`` the result is the SAME
     estimator as regen/while/scan (counter-keyed RNG); surplus iterations
-    are no-ops (all lanes idle -> the mesh kernel skips every block).  If
+    are no-ops (all lanes idle -> the mesh search skips every cluster).  If
     ``n_iters`` is too small, unfinished samples' partial radiance is
     still banked (matching ``trace_regen``'s continuous accumulation);
     callers check the returned ``completed`` (min finished-sample count
@@ -324,14 +324,12 @@ def trace_regen_scan(cfg: SceneConfig, scene: SceneData, cam_pytree,
         # chunk multiple -- surplus iterations are no-ops.
         #
         # remat="body" (default) checkpoints each iteration: the scans
-        # save every per-iteration carry (~80 B/lane/iter of HBM) plus the
-        # named "hit" records, and the backward re-runs only one
-        # iteration's elementwise shading at a time -- measured 3.50 GB
-        # temp / 4.61 s at 512^2 x 4 spp x 64 iters.  remat="segment"
-        # moves the boundary to the WHOLE inner chunk, which was the
-        # memory hypothesis but LOST on both axes (12.42 GB / 6.39 s: XLA
-        # rebuffers the recompute segment; PERF.md round-4), so it stays
-        # opt-in for sweeps only.
+        # save every per-iteration carry (~80 B/lane/iter of device
+        # memory) plus the named "hit" records, and the backward re-runs
+        # only one iteration's elementwise shading at a time.
+        # remat="segment" moves the boundary to the WHOLE inner chunk (a
+        # memory hypothesis; XLA rebuffers the recompute segment), opt-in
+        # for sweeps only.
         n_outer = -(-n_iters // chunk)
 
         if remat == "segment":
@@ -370,6 +368,44 @@ def calibrate_regen_iters(cfg: SceneConfig, scene: SceneData, cam_pytree,
     it = int(jax.device_get(run(scene, cam_pytree, px, py)))
     chunk = integrator.SCAN_CHUNK
     return -(-max(int(it * margin), 1) // chunk) * chunk
+
+
+def make_frame_value_and_grad(cfg: SceneConfig, scene: SceneData,
+                              cam_pytree, width: int, spp: int, seed=3,
+                              regen_iters: int | None = None):
+    """(jitted fn, args, regen_iters) for value_and_grad of the mean
+    width^2 image w.r.t. every float scene leaf plus the camera pytree,
+    through ``trace_regen_scan`` at the scene's full bounce budget.
+
+    ``fn(args)`` returns (mean radiance, completed samples, gradients);
+    the scene's int/bool tables (geometry types, BVH links) ride along
+    undifferentiated.  ``regen_iters`` defaults to a calibrated budget.
+    """
+    if regen_iters is None:
+        regen_iters = calibrate_regen_iters(cfg, scene, cam_pytree, width,
+                                            width, spp, seed=seed)
+    px, py = pixel_grid(width, width)
+    leaves, treedef = jax.tree_util.tree_flatten(scene)
+    is_f = [jnp.issubdtype(jnp.asarray(x).dtype, jnp.floating)
+            for x in leaves]
+    f_leaves = [x for x, f in zip(leaves, is_f) if f]
+    rest = [x for x, f in zip(leaves, is_f) if not f]
+
+    def loss(args):
+        f_l, cam = args
+        it_f, it_r = iter(f_l), iter(rest)
+        sc = jax.tree_util.tree_unflatten(
+            treedef, [next(it_f) if f else next(it_r) for f in is_f])
+        acc, _, completed = trace_regen_scan(cfg, sc, cam, width, width,
+                                             spp, px, py, seed, regen_iters)
+        return jnp.mean(acc), completed
+
+    @jax.jit
+    def value_and_grad(args):
+        (val, completed), grad = jax.value_and_grad(loss, has_aux=True)(args)
+        return val, completed, grad
+
+    return value_and_grad, (f_leaves, cam_pytree), regen_iters
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """BSDF framework: sample / eval / pdf for the full material set, batched.
 
-TPU-first re-design of ``kernels/bxdf/bxdf.cl`` + ``kernels/bxdf/Materials/*``:
+Batched re-design of ``kernels/bxdf/bxdf.cl`` + ``kernels/bxdf/Materials/*``:
 instead of a per-thread type-bitmask if/else dispatch, every *present*
 material family (statically gated by ``SceneConfig.active_mats``, the
 analogue of the reference's ``#ifdef`` dead-code elimination) is evaluated

@@ -5,8 +5,8 @@ instead of one work-item walking primitive lists, the whole ray batch is
 intersected against each primitive *class* with broadcasting ([rays x
 objects] on the VPU), the SDF raymarcher is a masked ``lax.while_loop``
 over the batch, and BVH traversal is a vectorized stackless walk over a
-DFS-threaded node array (skip links) -- no per-lane stacks (the single
-biggest TPU hazard called out in SURVEY §7).
+DFS-threaded node array (skip links) -- no per-lane stacks (the
+divergence hazard called out in SURVEY §7).
 
 Object ordering matches the reference SoA: [spheres | sdfs | boxes | quads]
 (include/Scene/scene.h:262-469); the OBJ triangle mesh is a virtual object
@@ -39,12 +39,11 @@ class Hit(NamedTuple):
     backside: jnp.ndarray  # [N] bool
     # winning triangle index in the active mesh backend's table space, -1
     # for analytic/miss.  Fed back as the NEXT dispatch's self-exclusion:
-    # the brute kernel's bf16x3 t*den noise (~9e-5) exceeds the EPS*den^2
-    # self-intersection guard for rays originating ON their triangle, so
-    # the plane containing the origin must be excluded by INDEX (exact for
-    # planar triangles -- a ray can never legitimately re-hit the flat
-    # triangle it leaves).  Measured: 19,479/262,144 false self-hits at
-    # t~1e-5..5e-5 without it (tools/kernel_parity_probe.py; PERF.md r4).
+    # rounding in the den-multiplied t*den of a ray that starts ON its
+    # triangle can exceed the EPS*den^2 self-intersection guard, so the
+    # plane containing the origin is excluded by INDEX (exact for planar
+    # triangles -- a ray can never legitimately re-hit the flat triangle
+    # it leaves).
     tri: jnp.ndarray = None
 
     @property
@@ -247,7 +246,10 @@ def _tri_intersect(p0, p1, p2, origin, direction, t_best):
     return hit, t, u, v
 
 
-TRAVERSE_CHUNK = 8192  # lanes per while_loop (bounds the worst-lane tail)
+# lanes per while_loop.  Chunking bounds the worst-lane tail, but each
+# chunk is a sequential loop of small launches: on the H100 a 524,288-ray
+# dispatch took 212 ms in 8,192-lane chunks and 33 ms in one (PERF.md)
+TRAVERSE_CHUNK = 1 << 20
 
 
 def bvh_traverse(scene: SceneData, origin, direction, t_init,
@@ -322,9 +324,8 @@ def _bvh_traverse_chunk(scene: SceneData, origin, direction, t_init,
 
     # One flat loop: every iteration fetches the 32B node row + 8B octant
     # links and (speculatively) the 144B leaf row.  A two-level
-    # "while-while" variant that defers leaf fetches measured ~45% SLOWER
-    # on v5e (lockstep lanes stall through the inner walk and the extra
-    # loop sync outweighs the saved bytes), so the flat form stays.
+    # "while-while" variant that defers leaf fetches stalls lockstep lanes
+    # through the inner walk, so the flat form stays.
     def cond(carry):
         node, t, tri, u, v = carry[:5]
         return jnp.any(node < n_nodes)
@@ -482,7 +483,7 @@ def analytic_reattach(cfg: SceneConfig, scene: SceneData, origin, direction,
     gradient is the implicit-function-theorem derivative w.r.t. ray
     origin/direction and the object tables.  The winner's parameter rows
     arrive through ONE packed ``fetch_float_rows`` gather whose transpose
-    is a single MXU matmul (ops/math.py), so the backward cost is
+    is a single one-hot matmul (ops/math.py), so the backward cost is
     winner-only elementwise math instead of the full [rays x objects]
     primitive sweep.  Normals get the same zero-in-primal correction.
     """
@@ -576,18 +577,21 @@ def mesh_closest(cfg: SceneConfig, scene: SceneData, origin, direction,
     """
     # the winning-index output is named for the bounce scan's remat
     # policy: downstream gathers index with THIS tensor (not the saved
-    # post-processed Hit.tri), so leaving it unnamed made the backward
-    # recompute RE-RUN the whole mesh kernel + the [2N,9] validate gather
-    # every iteration (rematted_computation custom-call, ~19 ms/iter =
-    # ~40% of the round-4 backward; tools/bwd_trace.py round-5)
+    # post-processed Hit.tri), so leaving it unnamed makes the backward
+    # recompute RE-RUN the whole mesh search + the [2N,9] validate gather
+    # every iteration
     name = jax.ad_checkpoint.checkpoint_name
-    if cfg.mesh_accel == "brute":
+    if cfg.mesh_accel in ("brute", "reference"):
+        reference = cfg.mesh_accel == "reference"
         perm = None
-        if cfg.mesh_sort_rays and mesh_brute.uses_pallas():
-            # block-coherence sort (see SceneConfig.mesh_sort_rays):
-            # key = direction octant | quantized origin cell.  All inputs
-            # are permuted, outputs unpermuted -- exactly result-
-            # invariant since tile relevance is conservative per lane.
+        if not reference and mesh_brute.uses_kernel():
+            # block-coherence sort for the GPU kernel: block-coherent rays
+            # let more blocks skip a cluster (measured on the H100,
+            # PERF.md: forward frame 2.26 -> 1.16 s on cornell, 3.47 ->
+            # 2.84 s on cornell_hi).  key = direction octant | quantized
+            # origin cell.  All inputs are permuted, outputs unpermuted --
+            # exactly result-invariant since cluster relevance is
+            # conservative per lane.
             sg = jax.lax.stop_gradient
             o_sg, d_sg = sg(origin), sg(direction)
             cl = sg(scene.bf_clusters)
@@ -616,25 +620,11 @@ def mesh_closest(cfg: SceneConfig, scene: SceneData, origin, direction,
         tm, tri_raw = mesh_brute.mesh_intersect(
             scene.bf_feat, scene.bf_clusters, origin_k, direction_k,
             t_init_k, active=active_k, any_hit=any_hit_k,
-            exclude=exclude_k)
+            exclude=exclude_k, reference=reference)
         if perm is not None:
             tm, tri_raw = tm[inv_perm], tri_raw[inv_perm]
         tri = _validate_winner(scene.bf_tri_verts, tri_raw, origin,
                                direction, t_init)
-        if cfg.mesh_second_pass and mesh_brute.uses_pallas():
-            # a rejected winner (grazing/near-origin false hit in the
-            # den-multiplied tests) may hide the TRUE triangle behind it:
-            # re-search just those lanes with the false winner excluded.
-            # Cheap: blocks with no rejected lanes set no relevance bits,
-            # so the second dispatch degenerates to scalar branch tests.
-            rejected = (tri_raw >= 0) & (tri < 0)
-            act2 = rejected if active is None else rejected & active
-            _, tri2_raw = mesh_brute.mesh_intersect(
-                scene.bf_feat, scene.bf_clusters, origin, direction,
-                t_init, active=act2, any_hit=any_hit, exclude=tri_raw)
-            tri2 = _validate_winner(scene.bf_tri_verts, tri2_raw, origin,
-                                    direction, t_init)
-            tri = jnp.where(rejected, tri2, tri)
         return tm, name(tri, "hit"), scene.bf_tri_verts, scene.bf_tri_normals
     tm, tri, _, _ = bvh_traverse(scene, origin, direction, t_init,
                                  any_hit=any_hit, active=active)
@@ -642,17 +632,15 @@ def mesh_closest(cfg: SceneConfig, scene: SceneData, origin, direction,
 
 
 def _validate_winner(tri_verts, tri, origin, direction, t_init):
-    """Exact f32 re-test of the brute kernel's winning triangle.
+    """Exact f32 re-test of the brute search's winning triangle.
 
-    The kernel's den-multiplied edge tests lose ~den^2 of precision, so
-    GRAZING rays (den -> 0, i.e. mesh silhouettes) can report false hits
-    even with the bf16x3 matmul -- measured as a systematic darkening of
-    teapot-rim pixels (-0.5%/bounce image energy; PERF.md round-4).  One
-    exact Moller-Trumbore on the single winning triangle per lane rejects
-    those; a rejected winner falls back to the analytic hit, which is also
-    what the exact kernel would have returned in the overwhelmingly common
-    case (the false hit shadows nothing).  On CPU the XLA kernel is exact
-    f32, so this never rejects and results are unchanged.
+    The den-multiplied edge tests lose ~den^2 of precision, so GRAZING
+    rays (den -> 0, i.e. mesh silhouettes) could report false hits under
+    a lower-precision search.  One exact Moller-Trumbore on the single
+    winning triangle per lane rejects those; a rejected winner falls back
+    to the analytic hit, which is also what an exact search returns in
+    the overwhelmingly common case (the false hit shadows nothing).  Both
+    routes search in f32, so in practice this rarely rejects.
     """
     tv = tri_verts.reshape(-1, 9)[jnp.maximum(tri, 0)]
     ok, _, _, _ = _tri_intersect(tv[:, 0:3], tv[:, 3:6], tv[:, 6:9],
@@ -666,14 +654,14 @@ def traversal_cost(cfg: SceneConfig, scene: SceneData, origin, direction):
     """Per-ray traversal work estimate for the debug AOV (the reference's
     VIEW_STACK_INDEX heatmap, kernels/main.cl:6-13,144-147).
 
-    brute backend: number of matmul tiles the ray's frustum makes relevant;
+    brute backend: number of cluster tiles the ray's frustum makes relevant;
     bvh backend: node-visit count of the skip-link walk.
     """
     n = origin.shape[0]
     t_init = jnp.full((n,), RAY_INF, jnp.float32)
     if not cfg.has_mesh:
         return jnp.zeros((n,), jnp.int32)
-    if cfg.mesh_accel == "brute":
+    if cfg.mesh_accel in ("brute", "reference"):
         return mesh_brute.ray_cluster_count(scene.bf_clusters, origin,
                                             direction, t_init)
     _, _, _, _, steps = _bvh_traverse_chunk(scene, origin, direction,
@@ -689,10 +677,9 @@ def _closest_analytic(cfg: SceneConfig, scene: SceneData, origin, direction,
     first-order-exact derivatives for the winning object only via
     ``analytic_reattach`` (the same detached-selection + winner-reattach
     pattern as the mesh backends).  Differentiating the [rays x objects]
-    broadcast intersects directly made the backward recompute + transpose
-    the whole primitive sweep every iteration -- measured as +1.39 s of
-    the 3.61 s fwd+bwd frame at 512^2 x 4 spp (tools/bwd_anatomy.py
-    round-5 geom group).  The mesh backend runs separately so the
+    broadcast intersects directly makes the backward recompute + transpose
+    the whole primitive sweep every iteration.  The mesh backend runs
+    separately so the
     integrator can merge its (expensive) custom call across ray batches.
     """
     origin = jax.lax.stop_gradient(origin)
@@ -710,7 +697,7 @@ def _closest_analytic(cfg: SceneConfig, scene: SceneData, origin, direction,
 
     # Analytic primitives run FIRST: they are cheap broadcasts and the
     # tightened ``t`` lets the mesh backend prune (cluster skipping in the
-    # brute kernel, box-exit clamping in the BVH walk).  Result is order-
+    # GPU kernel, box-exit clamping in the BVH walk).  Result is order-
     # independent: every section keeps the strictly closer hit.
     if cfg.n_spheres:
         ts = sphere_hits(origin, direction,
@@ -782,8 +769,7 @@ def _finish_hit(cfg: SceneConfig, scene: SceneData, origin, direction,
             # keep ray-origin/direction gradients (camera, upstream
             # materials) but detach the vertex/normal TABLES: their
             # gather's transpose is a per-bounce [N,9] scatter-add into
-            # the [T,9] tables, measured at 2.9x the whole fwd+bwd cost
-            # (tools/bwd_anatomy.py; see SceneConfig.mesh_vertex_grads)
+            # the [T,9] tables (see SceneConfig.mesh_vertex_grads)
             tvs = jax.lax.stop_gradient(tvs)
             tns = jax.lax.stop_gradient(tns)
         # reattach gradients through the selected triangle (detached walk)
@@ -897,10 +883,11 @@ def intersect_and_shadow(cfg: SceneConfig, scene: SceneData,
 
     The reference launches one traversal per ray kind per bounce
     (kernels/integrators/base.cl:31-192 calls intersectScene then shadow);
-    on TPU every mesh dispatch is a Pallas custom call that fragments the
-    surrounding XLA fusion graph and pays a fixed relevance/launch cost, so
-    the integrator batches the NEE shadow rays with the next bounce's
-    closest-hit rays into a single mixed dispatch (per-lane any-hit flag).
+    here every mesh dispatch is a custom call (the GPU kernel) that
+    fragments the surrounding XLA fusion graph and pays a fixed launch
+    cost, so the integrator batches the NEE shadow rays with the next
+    bounce's closest-hit rays into a single mixed dispatch (per-lane
+    any-hit flag).
 
     ``shadow_batches``: list of (origin, direction, max_dist, active).
     ``exclude_tri`` may be one [N] row (same exclusion for every segment --

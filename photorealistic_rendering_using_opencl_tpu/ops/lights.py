@@ -94,8 +94,7 @@ def pick_light(cfg: SceneConfig, scene: SceneData, u: jnp.ndarray):
 
     Single-light scenes get a SCALAR index: every downstream light-table
     lookup (position/params/quad_*/color/geom_type) then compiles to a
-    broadcast row read instead of an [N]-gather -- gathers are the
-    dominant cost of the NEE block on TPU.
+    broadcast row read instead of an [N]-gather.
     """
     if cfg.pick_random_light and cfg.n_lights > 1:
         li = jnp.clip((u * cfg.n_lights).astype(jnp.int32), 0, cfg.n_lights - 1)

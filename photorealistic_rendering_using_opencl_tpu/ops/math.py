@@ -150,7 +150,7 @@ def power_heuristic(pdf0: jnp.ndarray, pdf1: jnp.ndarray) -> jnp.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Table-row fetch with an MXU-transpose VJP (backward-anatomy attack, r5)
+# Table-row fetch with a one-hot-matmul VJP
 # ---------------------------------------------------------------------------
 
 SELECT_MAX_ROWS = 24
@@ -159,9 +159,8 @@ SELECT_MAX_ROWS = 24
 def select_rows(arr, idx):
     """``arr[idx]`` ([K,...] by [N]) as a compare/select chain.
 
-    Per-ray gathers cost ~10-50x an elementwise op on TPU; for the small
-    object tables of typical scenes a K-way select chain of broadcast rows
-    is far cheaper (measured 3x whole-frame on cornell, PERF.md round-1)."""
+    For the small object tables of typical scenes a K-way select chain of
+    broadcast rows replaces a per-ray gather with K elementwise passes."""
     out = jnp.broadcast_to(arr[0],
                            idx.shape + arr.shape[1:]).astype(arr.dtype)
     for i in range(1, arr.shape[0]):
@@ -179,18 +178,15 @@ def _fetch_rows_impl(table, idx):
 
 @jax.custom_vjp
 def fetch_float_rows(table, idx):
-    """``table[idx]`` ([K,F] by [N] -> [N,F]) with an MXU transpose.
+    """``table[idx]`` ([K,F] by [N] -> [N,F]) with a one-hot-matmul transpose.
 
     Forward: the usual select chain (or gather for big tables).  Backward:
     the VJP of a row-fetch is a segment-sum of the [N,F] cotangent into
     the [K,F] table -- autodiff of the select chain emits K masked
-    [N,F]->[F] reductions PER FIELD PER ITERATION, which is the measured
-    round-4/5 backward bottleneck (tools/bwd_anatomy.py: parameter-
-    gradient accumulation dominates the 3.6x AD multiplier).  Here it is
-    ONE one-hot [K,N]x[N,F] matmul on the MXU instead.  HIGHEST precision
-    keeps the accumulation f32-exact (the one-hot operand is exactly
-    representable; single-pass bf16 would quantize the cotangents -- the
-    round-4 mesh-kernel lesson, PERF.md)."""
+    [N,F]->[F] reductions PER FIELD PER ITERATION.  Here it is ONE one-hot
+    [K,N]x[N,F] matmul instead.  HIGHEST precision keeps the accumulation
+    f32-exact (the one-hot operand is exactly representable; TF32 or
+    single-pass bf16 would quantize the cotangents)."""
     return _fetch_rows_impl(table, idx)
 
 

@@ -1,12 +1,10 @@
-"""MXU brute-force mesh intersection: Moller-Trumbore as one matmul.
+"""Brute-force mesh intersection: relevance-pruned exhaustive Moller-Trumbore.
 
-The round-1 skip-link BVH walk (ops/intersect.py:bvh_traverse) is correct
-but HBM-gather-bound: every traversal step pays ~184 random bytes per lane
-(PERF.md), which is the one access pattern a TPU cannot do fast.  This
-module replaces the walk for small/medium meshes with the opposite design:
-test EVERY (ray, triangle) pair, but phrase the whole Moller-Trumbore
-system as a single matrix product so the work lands on the MXU with zero
-gathers and zero divergence.
+The skip-link BVH walk (ops/intersect.py:bvh_traverse) is correct but
+gather-bound: every traversal step pays ~184 random bytes per lane and
+lanes diverge in trip count.  This module takes the opposite design for
+small and medium meshes: test EVERY (ray, triangle) pair of the tiles a
+ray can reach, with no gathers and no divergence.
 
 Math.  With the reference's triangle test (kernels/geometry/triangle.cl:
 4-43): e1 = p0-p1, e2 = p2-p0, n = e1 x e2, c = p0 - o, den = n.d,
@@ -20,130 +18,67 @@ ray feature  f = [o, d, d x o, 1]:
     u*den  = <f, [0,       p0 x e2, -e2,  0     ]>
     v*den  = <f, [0,       p0 x e1, -e1,  0     ]>
 
-so intersecting B rays against C triangles is ONE [B,16] x [16,4C] matmul
-(features padded 10->16) followed by a cheap elementwise hit test in
-den-multiplied form (no divisions until the winning t).  All coefficient
-vectors are pre-scaled by 1/|n| on the host so den is in [-1,1].
+followed by a cheap elementwise hit test in den-multiplied form (no
+divisions until the winning t).  All coefficient vectors are pre-scaled
+by 1/|n| on the host so den is in [-1,1].
 
 Triangles are kept in BVH leaf order (spatially sorted) and grouped into
-tiles of TILE triangles; each tile's AABB ("cluster") lets the kernel skip
-whole tiles that no ray in the block can hit closer than its current best
--- the coherence win of a BVH at matmul granularity.  The full coefficient
-table lives in VMEM (256 B/triangle) up to BRUTE_MAX_TRIS; past that the
-pallas grid gains a table-chunk dimension and the pipeline streams
-CHUNK_TRIS-triangle chunks through VMEM from HBM (measured 4.1x the
-skip-link walk at 82k tris, round 5), up to BRUTE_STREAM_MAX_TRIS where
-the walk takes over.
+tiles of TILE triangles; each tile's AABB ("cluster") lets a block of rays
+skip whole tiles that none of its rays can hit closer than its current
+best -- the coherence win of a BVH at tile granularity.
+
+Two routes compute the same answer:
+
+  * ``_intersect_xla`` -- the plain reference: a scan over tiles, one f32
+    ``[rays, 16] x [16, 4*TILE]`` dot per tile at ``Precision.HIGHEST``
+    (never TF32), no pruning.  It runs on the CPU and anywhere else.
+  * ``_intersect_triton`` -- the GPU kernel (Pallas through Triton).  Each
+    program owns BLOCK_RAYS rays, walks the cluster list, tests each
+    cluster's AABB against its rays' current best t in-kernel, and for a
+    relevant cluster evaluates the coefficient form in f32 on the CUDA
+    cores, STEP_TRIS triangles at a time, min-reducing every
+    ``[rays, triangles]`` score tile in registers.  No score matrix ever
+    reaches device memory.
 
 The hit test is exhaustive, so results equal the BVH walk's closest hit
 (modulo exact-tie ordering).  Traversal stays detached; gradients reattach
-through the selected triangle exactly as before (tri_reattach).
+through the selected triangle (ops/intersect.py:tri_reattach).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from photorealistic_rendering_using_opencl_tpu.ops.math import EPS
 
-import os as _os
+TILE = 128  # triangles per cluster tile (the pruning granularity)
+FEAT = 16  # ray feature width (10 used, padded)
 
-# triangles per cluster tile.  Round-5 sweep at the flagship fwd+bwd
-# shape: 512 -> 1.290 s, 256 -> 1.232 s, 128 -> 1.222 s (finer clusters
-# let the relevance prune actually bite on divergent bounce rays:
-# per-block tile unions shrink faster than the per-tile branch overhead
-# grows), 64 fails to compile; parity at 128 is 0/262144 flips on both
-# closest and any-hit lanes and the streamed path is unaffected.
-TILE = int(_os.environ.get("PRT_MESH_TILE", "128"))
-# rays per kernel instance.  Round-5 sweep at TILE=128 (flagship fwd+bwd
-# shape): 512 -> 1.222 s, 256 -> 1.126 s, 128 -> 1.170 s; the streamed
-# 82k-tri path also improves (1.18 -> 1.30 M interior rays/s at 256).
-# Finer blocks tighten each block's relevant-tile union; below 256 the
-# per-block fixed costs win back.  Parity at 128/256: 0/262144 flips.
-BLOCK = int(_os.environ.get("PRT_MESH_BLOCK", "256"))
-FEAT = 16  # ray feature width (10 used, padded for sublane tiling)
-# largest mesh whose full coefficient table stays VMEM-resident for the
-# whole dispatch; bigger meshes switch to the HBM-streamed variant where
-# pallas pipelines CHUNK_TRIS-triangle table chunks through VMEM (grid
-# over ray-blocks x chunks, double-buffered by the pallas pipeline) --
-# the per-dispatch floor becomes nblocks x table-bytes of HBM traffic
-BRUTE_MAX_TRIS = 32768
-CHUNK_TRIS = int(_os.environ.get("PRT_MESH_CHUNK_TRIS", "4096"))
-# beyond this even streaming stops paying vs the skip-link walk (the
-# traffic floor grows linearly in mesh size; decision in PERF.md r5)
-BRUTE_STREAM_MAX_TRIS = 262144
+# GPU kernel shape: BLOCK_RAYS x STEP_TRIS f32 score tiles live in the
+# registers of NUM_WARPS warps.  Swept on the H100 (PERF.md): small ray
+# blocks prune best -- per 524,288-ray dispatch on cornell, 8x32 on one
+# warp took 3.10 ms, 16x32 on 2 warps 4.11 ms, 64x32 on 4 warps 7.15 ms.
+BLOCK_RAYS = 8
+STEP_TRIS = 32
+NUM_WARPS = 1
 
-# MXU precision for the intersection matmul.  DEFAULT single-pass bf16
-# quantizes the [o, d, d x o] features AND the coefficient table to 8
-# mantissa bits; the u*den / v*den coefficients have magnitude ~|p0|/|e1|
-# (~40 on the teapot) against a [0, 1] signal, so quantization noise is
-# ~16% of the edge margin -- measured on cornell as 1.6% wrong winning
-# triangles / 0.26% hit<->miss flips per dispatch, compounding over ~20
-# intersections/path into a 4% mean-radiance bias (TPU 0.33679 == CPU
-# bf16-sim 0.33681 vs CPU f32 0.35109; PERF.md round-4).
-#
-# The fix is a STACKED-K hi/lo decomposition: split each operand into
-# bf16 words (x = x0 + x1 + x2), stack the term pairs along the
-# contracted dimension, and run ONE K = T*16 dot at native bf16 -- the
-# 128-deep systolic array pads K anyway, so the extra words are free.
-# Measured (262k interior rays, teapot): broken DEFAULT 16.6 ms;
-# bf16x3 (T=3, ~16 mantissa bits) 16.8 ms; bf16x6 (T=6, f32-exact,
-# 0/262144 disagreements vs Precision.HIGHEST) 16.8 ms; Precision
-# HIGHEST 58.1 ms.  f32-exact for free -> "bf16x6" is the default.
-# PRT_MESH_PRECISION in {default, bf16x3, bf16x6, highest} overrides.
-_PRECISION_NAME = _os.environ.get("PRT_MESH_PRECISION", "bf16x6")
-MATMUL_PRECISION = {
-    "default": jax.lax.Precision.DEFAULT,
-    "bf16x3": jax.lax.Precision.HIGHEST,  # XLA fallback path: exact
-    "bf16x6": jax.lax.Precision.HIGHEST,
-    "highest": jax.lax.Precision.HIGHEST,
-}[_PRECISION_NAME]
+# largest mesh the GPU tests exhaustively; the skip-link walk takes over
+# past it (scene/loader.py:_pick_mesh_accel).  Measured on the H100: the
+# kernel beats the walk end to end at 81,920 triangles; larger meshes are
+# not measured yet (PERF.md)
+GPU_BRUTE_MAX_TRIS = 131072
 
-# stacked-K hi/lo term lists: x = x0 + x1 (+ x2), each part bf16-exact;
-# each (i, j) pair contributes a_i . p_j to the single K = len(terms)*FEAT
-# dot.  bf16x3 drops the ~2^-16-relative lo.lo term; bf16x6 keeps every
-# term above ~2^-24 (f32-equivalent).
-_SPLIT_TERMS = {
-    "bf16x3": ((0, 0), (1, 0), (0, 1)),
-    "bf16x6": ((0, 0), (1, 0), (2, 0), (0, 1), (1, 1), (0, 2)),
-}
-# Precision caveat (measured round 5, tools/tpu_radiance_parity.py):
-# stacked-K bf16x6 matches Precision.HIGHEST bit-for-bit on random-ray
-# populations (0/262144 winner flips) but NOT on render populations --
-# rays originating ON the mesh and silhouette-grazing directions hit
-# cancellation regimes where the MXU's single-dot K accumulation loses
-# the correction products that XLA's pass-wise HIGHEST form keeps,
-# measured as a +0.85% mean-radiance bias on cornell (TPU pallas
-# 0.35452 vs TPU XLA 0.35153 == CPU 0.35153 exactly).  Term ORDER is
-# irrelevant (reordering smallest-first reproduces the bias bitwise:
-# the accumulation is a fixed tree), and a second-dispatch search for
-# validate-rejected winners recovers only 0.14pp at +43% cost (grazing
-# false MISSES dominate, and no re-search can recover a miss).
-# PRT_MESH_PRECISION=highest restores exact parity at 58.1 vs 16.8 ms
-# per dispatch -- the documented quality/speed knob.
-
-
-def _hi_lo_parts(x, n):
-    parts = []
-    rem = x
-    for _ in range(n):
-        h = rem.astype(jnp.bfloat16)
-        parts.append(h)
-        rem = rem - h.astype(jnp.float32)
-    return parts
-
-# transposed ray-pack rows 10-12 carry per-lane control values; the
-# coefficient table's rows 10-15 are all zero, so they ride through the
-# intersection matmul with no effect
-ROW_TINIT = 10
-ROW_ACTIVE = 11
-ROW_ANYHIT = 12
-ROW_EXCLUDE = 13  # self-triangle index as f32 (-1 = none); exact to 2^24
+# rows of the GPU kernel's ray pack ([RAY_ROWS, N] f32, one ray per column)
+RAY_ROWS = 16
+ROW_TINIT = 9
+ROW_ACTIVE = 10
+ROW_ANYHIT = 11
 
 
 class BrutePack(NamedTuple):
@@ -160,7 +95,7 @@ def pack_brute(tri_verts: np.ndarray, tri_normals: np.ndarray,
 
     ``tri_verts`` must already be in BVH order (scene/bvh_build.py
     ``order``) so consecutive tiles are spatially compact; the cluster
-    AABBs then stay tight and the kernel's tile skipping is effective.
+    AABBs then stay tight and tile skipping is effective.
     Padding slots get all-zero coefficients: den = t*den = 0 fails the
     strict t*den > EPS*den^2 test, so they can never register a hit.
     """
@@ -212,7 +147,7 @@ def pack_brute(tri_verts: np.ndarray, tri_normals: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
-# Shared hit-test math (identical formulas in the XLA and Pallas paths)
+# Plain reference (CPU route; the comparison baseline on every device)
 # ---------------------------------------------------------------------------
 
 def _tile_scores(f, a_tile, c):
@@ -220,19 +155,13 @@ def _tile_scores(f, a_tile, c):
 
     Den-multiplied Moller-Trumbore: u,v,w >= 0 and t > EPS become sign
     tests on products with den, avoiding per-pair division; the division
-    producing t only matters for pairs that already pass.
-
-    A bf16 coefficient table runs the matmul in bf16 x bf16 -> f32 (the
-    MXU's native fast path; ray features converted to match).  Only the
-    WINNING TRIANGLE INDEX leaves this module -- every caller re-derives
-    the exact f32 t/u/v via ops/intersect.py:tri_reattach -- so table
-    quantization can only flip near-ties between triangles within ~2^-8
-    relative t, never bias the shading position.
+    producing t only matters for pairs that already pass.  The dot asks
+    for HIGHEST precision: a float32 product may otherwise run in TF32 on
+    a GPU, whose ~10 mantissa bits flip edge hits wholesale (the u*den,
+    v*den terms cancel two O(|p0||e|) products down to a ~1e-3 signal).
     """
-    if a_tile.dtype == jnp.bfloat16:
-        f = f.astype(jnp.bfloat16)
     out = jnp.dot(f, a_tile, preferred_element_type=jnp.float32,
-                  precision=MATMUL_PRECISION)
+                  precision=jax.lax.Precision.HIGHEST)
     den = out[:, 0 * c:1 * c]
     tden = out[:, 1 * c:2 * c]
     uden = out[:, 2 * c:3 * c]
@@ -255,10 +184,6 @@ def _ray_features(origin, direction):
     zeros = jnp.zeros(origin.shape[:-1] + (FEAT - 10,), jnp.float32)
     return jnp.concatenate([origin, direction, dxo, ones, zeros], axis=1)
 
-
-# ---------------------------------------------------------------------------
-# XLA path (CPU tests / reference semantics; scan over tiles)
-# ---------------------------------------------------------------------------
 
 def _intersect_xla(feat, clusters, origin, direction, t_init, active,
                    exclude=None):
@@ -295,186 +220,146 @@ def _intersect_xla(feat, clusters, origin, direction, t_init, active,
 
 
 # ---------------------------------------------------------------------------
-# Pallas TPU kernel: VMEM-resident table, cluster-skipped matmul tiles
+# GPU kernel (Pallas through Triton)
 # ---------------------------------------------------------------------------
 
-def _make_kernel(nt: int, c: int, block: int, split: bool,
-                 split_terms=(), tpc: int = None, nchunks: int = 1):
-    """Pure matmul kernel; all irregularity analysis happens outside.
+def _triangle_table(feat):
+    """[FEAT, 4*Tpad] tile-grouped coefficients -> [16, Tpad] SoA table.
 
-    Cluster relevance (which matmul tiles some ray in the block could
-    improve on) is precomputed vectorized in XLA (`_block_relevance`) and
-    arrives as one int32 row per block in SMEM.  The kernel itself does
-    zero slab math and zero cross-lane reductions — the round-1 in-kernel
-    per-tile [block,1] slab walk ran at 1/128 lane utilisation and cost
-    ~29 ms per call even with every lane dead (PERF.md).  A block whose
-    rays are all dead or all miss the mesh now costs ``nt`` scalar branch
-    tests.
-
-    LAYOUT: rays ride the LANE dimension.  All I/O is a transposed pack
-    P[16, block] (ray features + t_init/active/anyhit in the feature rows
-    the coefficient table zeroes) and [1, block] result rows — measured on
-    v5e, a single (block, 3)-blocked pallas operand forces relayout copies
-    costing ~13 ms per dispatch at 262k lanes, vs ~2 ms lane-aligned
-    (tools/pallas_barrier_test.py).
-
-    The any-hit (shadow) variant is a PER-LANE flag (pack row 12), so one
-    kernel call can carry a mixed batch — the integrator fuses the NEE
-    shadow rays and the next bounce's closest-hit rays into a single 2N-ray
-    dispatch (round-3 roadmap #1).  An any-hit lane parks at -inf on its
-    first occluder and never updates again (traverseShadows early-out,
-    bvh.cl:43-114).
-
-    HBM-STREAMED MODE (``nchunks > 1``, meshes past the VMEM-resident
-    cap): the grid becomes (ray blocks, table chunks) with chunks
-    INNERMOST, so each output block is revisited across consecutive
-    steps (legal pallas accumulation) while the pallas pipeline double-
-    buffers the next table chunk in from HBM.  The kernel sees ``tpc``
-    tiles of the table at a time; outputs initialize at chunk 0 and
-    finalize (t_init fallback for misses) at the last chunk.
+    Rows: 0-2 den's d-coefficients (n), 3 t*den's constant (n.p0), 4-6 /
+    7-9 u*den's d- / (d x o)-coefficients, 10-12 / 13-15 the same for
+    v*den.  t*den's o-coefficients are exactly -n, so they are not
+    stored.  One triangle per column, so a step's loads are coalesced.
     """
-    tpc = nt if tpc is None else tpc
+    nt = feat.shape[1] // (4 * TILE)
+    f = feat.reshape(FEAT, nt, 4, TILE)
 
-    def impl(rel_ref, p_ref, a_ref, t_ref, i_ref):
-        p = p_ref[:]  # [FEAT, block] f32, or [3*FEAT, block] bf16 stacked
-        if split:
-            # stacked-K hi/lo: p stacks [p_{j} for (i,j) in terms] (bf16)
-            # against the table stack [a_{i} ...], so ONE K=T*FEAT dot
-            # yields sum a_i.p_j -- multi-word precision at a single MXU
-            # dispatch per tile (the 128-deep systolic array pads the
-            # contracted dim anyway, so T separate K=16 dots cost ~Tx
-            # this one; measured 39.8 ms -> 16.9 ms for bf16x3).
-            # Control rows reconstructed exactly from the distinct parts.
-            pc = p
-            seen = set()
-            pf = None
-            for k, (_, jpart) in enumerate(split_terms):
-                if jpart in seen:
-                    continue
-                seen.add(jpart)
-                part = p[k * FEAT:(k + 1) * FEAT].astype(jnp.float32)
-                pf = part if pf is None else pf + part
-            tinit = pf[ROW_TINIT:ROW_TINIT + 1, :]
-            act = pf[ROW_ACTIVE:ROW_ACTIVE + 1, :] > 0.5
-            anyh = pf[ROW_ANYHIT:ROW_ANYHIT + 1, :] > 0.5
-            excl = pf[ROW_EXCLUDE:ROW_EXCLUDE + 1, :]
-        else:
-            tinit = p[ROW_TINIT:ROW_TINIT + 1, :]
-            act = p[ROW_ACTIVE:ROW_ACTIVE + 1, :] > 0.5
-            anyh = p[ROW_ANYHIT:ROW_ANYHIT + 1, :] > 0.5
-            excl = p[ROW_EXCLUDE:ROW_EXCLUDE + 1, :]
-            # bf16 table -> convert the pack ONCE per block (one VPU
-            # pass); bf16 x bf16 -> f32 is the MXU's native fast path.
-            pc = p.astype(jnp.bfloat16) if a_ref.dtype == jnp.bfloat16 else p
+    def rows(sec, lo, hi):
+        return f[lo:hi, :, sec, :].reshape(hi - lo, nt * TILE)
 
-        pid = pl.program_id(0)
-        pid_j = pl.program_id(1) if nchunks > 1 else 0
-        nwords = -(-nt // 32)
-
-        def init():
-            # inactive lanes park at -inf so they can never record a hit
-            # even when their block runs a tile for other lanes
-            t_ref[:] = jnp.where(act, tinit, -jnp.inf)
-            i_ref[:] = jnp.full((1, block), -1, jnp.int32)
-
-        if nchunks > 1:
-            pl.when(pid_j == 0)(init)
-        else:
-            init()
-
-        row = jax.lax.broadcasted_iota(jnp.int32, (c, block), 0)
-        rowf = row.astype(jnp.float32)
-        for j in range(tpc):
-            # rel is FLAT [grid*nwords] in SMEM: a [grid, nwords] layout
-            # lane-pads each row to 128 words (1 MB of 1 MB smem at 2k
-            # blocks); the flat form stays at grid*nwords*4 bytes.
-            # jg is the GLOBAL tile id (chunk-offset in streamed mode).
-            jg = pid_j * tpc + j
-            bit = (rel_ref[pid * nwords + jg // 32] >> (jg % 32)) & 1
-            @pl.when(bit != 0)
-            def _(j=j, jg=jg):
-                # [4C, block] = A_tile[16, 4C]^T . P[16, block]; the
-                # control rows (10-12) hit all-zero coefficient rows
-                sl = slice(j * 4 * c, (j + 1) * 4 * c)
-                out = jax.lax.dot_general(
-                    a_ref[:, sl], pc,
-                    dimension_numbers=(((0,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                    precision=(jax.lax.Precision.DEFAULT if split
-                               else MATMUL_PRECISION))
-                den = out[0 * c:1 * c]
-                tden = out[1 * c:2 * c]
-                uden = out[2 * c:3 * c]
-                vden = out[3 * c:4 * c]
-                den2 = den * den
-                m = jnp.minimum(jnp.minimum(uden * den, vden * den),
-                                (den - uden - vden) * den)
-                td = tden * den
-                hit = (m >= 0.0) & (td > EPS * den2)
-                # per-lane self-exclusion (see Hit.tri in ops/intersect.py)
-                basef = jax.lax.convert_element_type(jnp.asarray(jg * c),
-                                                     jnp.float32)
-                hit = hit & (rowf + basef != excl)
-                score = jnp.where(hit, td / den2, jnp.inf)
-                tmin = jnp.min(score, axis=0, keepdims=True)
-                targ = jnp.min(jnp.where(score <= tmin, row, c), axis=0,
-                               keepdims=True) + jg * c
-                cur_t = t_ref[:]
-                better = tmin < cur_t
-                t_ref[:] = jnp.where(better,
-                                     jnp.where(anyh, -jnp.inf, tmin), cur_t)
-                i_ref[:] = jnp.where(better, targ, i_ref[:])
-
-        def finalize():
-            got = i_ref[:] >= 0
-            t_ref[:] = jnp.where(got & jnp.isfinite(t_ref[:]), t_ref[:],
-                                 tinit)
-
-        if nchunks > 1:
-            pl.when(pid_j == nchunks - 1)(finalize)
-        else:
-            finalize()
-
-    return impl
+    return jnp.concatenate([rows(0, 3, 6), rows(1, 9, 10),
+                            rows(2, 3, 6), rows(2, 6, 9),
+                            rows(3, 3, 6), rows(3, 6, 9)], axis=0)
 
 
-def _block_relevance(clusters, origin, direction, t_init, act, nblocks,
-                     block, pad=0):
-    """[nblocks, ceil(nt/32)] uint32 bitmask: does any active ray in block
-    b enter cluster j closer than its t_init?  Vectorized slab test left
-    to XLA — it fuses into a few passes over [N, nt] and replaces the
-    kernel-resident scalar walk that dominated the round-1 kernel's fixed
-    cost."""
-    nt = clusters.shape[0]
-    safe = jnp.where(jnp.abs(direction) < 1e-12,
-                     jnp.where(direction >= 0.0, 1e-12, -1e-12), direction)
-    inv_d = 1.0 / safe
-    # axis-at-a-time accumulation keeps intermediates at [N,nt] instead of
-    # materializing [N,nt,3] broadcasts (3x the HBM traffic; the whole
-    # bounce step is traffic-bound, PERF.md round-2 budget)
-    ent = jnp.full((origin.shape[0], nt), EPS, jnp.float32)
-    ext = jnp.full((origin.shape[0], nt), jnp.inf, jnp.float32)
-    for k in range(3):
-        lo = (clusters[None, :, k] - origin[:, k:k + 1]) * inv_d[:, k:k + 1]
-        hi = (clusters[None, :, 3 + k] - origin[:, k:k + 1]) * inv_d[:, k:k + 1]
-        ent = jnp.maximum(ent, jnp.minimum(lo, hi))
-        ext = jnp.minimum(ext, jnp.maximum(lo, hi))
-    rel = (ent <= jnp.minimum(ext, t_init[:, None])) & act[:, None]
-    if pad:
-        rel = jnp.pad(rel, ((0, pad), (0, 0)))
-    rel = rel.reshape(nblocks, block, nt).any(axis=1)  # [nblocks, nt]
-    nwords = -(-nt // 32)
-    npad_bits = nwords * 32
-    relp = jnp.pad(rel, ((0, 0), (0, npad_bits - nt)))
-    weights = (jnp.uint32(1) << (jnp.arange(npad_bits, dtype=jnp.uint32)
-                                 % 32)).reshape(nwords, 32)
-    words = jnp.sum(relp.reshape(nblocks, nwords, 32).astype(jnp.uint32)
-                    * weights[None], axis=-1, dtype=jnp.uint32)
-    return words
+def _mesh_kernel(ray_ref, ex_ref, tab_ref, clus_ref, t_ref, i_ref, *,
+                 n_tiles: int, block_rays: int, step_tris: int):
+    """One program: block_rays rays against every relevant cluster."""
+    o = [ray_ref[k, :] for k in range(3)]
+    d = [ray_ref[3 + k, :] for k in range(3)]
+    w = [ray_ref[6 + k, :] for k in range(3)]  # d x o
+    t_init = ray_ref[ROW_TINIT, :]
+    active = ray_ref[ROW_ACTIVE, :] > 0.5
+    any_hit = ray_ref[ROW_ANYHIT, :] > 0.5
+    excl = ex_ref[:][:, None]
+    inv_d = [1.0 / jnp.where(jnp.abs(dk) < 1e-12,
+                             jnp.where(dk >= 0.0, 1e-12, -1e-12), dk)
+             for dk in d]
+    col = jax.lax.broadcasted_iota(jnp.int32, (block_rays, step_tris), 1)
+
+    def step(base, carry):
+        best_t, best_i = carry
+        cols = pl.ds(base, step_tris)
+        tab = [tab_ref[r, cols][None, :] for r in range(16)]
+        d2 = [dk[:, None] for dk in d]
+        o2 = [ok[:, None] for ok in o]
+        w2 = [wk[:, None] for wk in w]
+        den = d2[0] * tab[0] + d2[1] * tab[1] + d2[2] * tab[2]
+        tden = tab[3] - (o2[0] * tab[0] + o2[1] * tab[1] + o2[2] * tab[2])
+        uden = (d2[0] * tab[4] + d2[1] * tab[5] + d2[2] * tab[6]
+                + w2[0] * tab[7] + w2[1] * tab[8] + w2[2] * tab[9])
+        vden = (d2[0] * tab[10] + d2[1] * tab[11] + d2[2] * tab[12]
+                + w2[0] * tab[13] + w2[1] * tab[14] + w2[2] * tab[15])
+        den2 = den * den
+        m = jnp.minimum(jnp.minimum(uden * den, vden * den),
+                        (den - uden - vden) * den)
+        td = tden * den
+        hit = (m >= 0.0) & (td > EPS * den2) & (col + base != excl)
+        score = jnp.where(hit, td / den2, jnp.inf)
+        tmin = jnp.min(score, axis=1)
+        targ = jnp.min(jnp.where(score <= tmin[:, None], col, step_tris),
+                       axis=1) + base
+        better = tmin < best_t
+        best_t = jnp.where(better, jnp.where(any_hit, -jnp.inf, tmin),
+                           best_t)
+        return best_t, jnp.where(better, targ, best_i)
+
+    def cluster(j, carry):
+        best_t, best_i = carry
+        # slab test of the cluster AABB against every ray's current best;
+        # finished any-hit lanes and inactive lanes sit at -inf
+        ent = jnp.full((block_rays,), EPS, jnp.float32)
+        ext = best_t
+        for k in range(3):
+            lo = (clus_ref[j, k] - o[k]) * inv_d[k]
+            hi = (clus_ref[j, 3 + k] - o[k]) * inv_d[k]
+            ent = jnp.maximum(ent, jnp.minimum(lo, hi))
+            ext = jnp.minimum(ext, jnp.maximum(lo, hi))
+        relevant = jnp.max((ent <= ext).astype(jnp.int32)) > 0
+
+        def run(carry):
+            for s in range(TILE // step_tris):
+                carry = step(j * TILE + s * step_tris, carry)
+            return carry
+
+        return jax.lax.cond(relevant, run, lambda c: c, (best_t, best_i))
+
+    best_t = jnp.where(active, t_init, -jnp.inf)
+    best_i = jnp.full((block_rays,), -1, jnp.int32)
+    best_t, best_i = jax.lax.fori_loop(0, n_tiles, cluster, (best_t, best_i))
+    got = best_i >= 0
+    t_ref[:] = jnp.where(got & jnp.isfinite(best_t), best_t, t_init)
+    i_ref[:] = best_i
+
+
+def _intersect_triton(feat, clusters, origin, direction, t_init, active,
+                      any_hit=False, exclude=None, interpret=False,
+                      block_rays=BLOCK_RAYS, step_tris=STEP_TRIS,
+                      num_warps=NUM_WARPS):
+    n = origin.shape[0]
+    npad = n + (-n) % block_rays
+    act = active if active is not None else jnp.ones((n,), bool)
+    t_init = jnp.broadcast_to(jnp.asarray(t_init, jnp.float32), (n,))
+    ah = jnp.broadcast_to(jnp.asarray(any_hit, jnp.float32), (n,))
+    ex = (jnp.full((n,), -1, jnp.int32) if exclude is None
+          else exclude.astype(jnp.int32))
+    o0, o1, o2 = origin[:, 0], origin[:, 1], origin[:, 2]
+    d0, d1, d2 = direction[:, 0], direction[:, 1], direction[:, 2]
+    rows = [o0, o1, o2, d0, d1, d2,
+            d1 * o2 - d2 * o1, d2 * o0 - d0 * o2, d0 * o1 - d1 * o0,
+            t_init, act.astype(jnp.float32), ah]
+    rows += [jnp.zeros((n,), jnp.float32)] * (RAY_ROWS - len(rows))
+    # padding lanes are inactive: they never make a cluster relevant
+    rays = jnp.pad(jnp.stack(rows, axis=0), ((0, 0), (0, npad - n)))
+    ex = jnp.pad(ex, (0, npad - n), constant_values=-1)
+    tab = _triangle_table(feat)
+    n_tiles = clusters.shape[0]
+
+    out_t, out_i = pl.pallas_call(
+        functools.partial(_mesh_kernel, n_tiles=n_tiles,
+                          block_rays=block_rays, step_tris=step_tris),
+        grid=(npad // block_rays,),
+        in_specs=[
+            pl.BlockSpec((RAY_ROWS, block_rays), lambda i: (0, i)),
+            pl.BlockSpec((block_rays,), lambda i: (i,)),
+            pl.BlockSpec(tab.shape, lambda i: (0, 0)),
+            pl.BlockSpec(clusters.shape, lambda i: (0, 0)),
+        ],
+        out_specs=(pl.BlockSpec((block_rays,), lambda i: (i,)),
+                   pl.BlockSpec((block_rays,), lambda i: (i,))),
+        out_shape=(jax.ShapeDtypeStruct((npad,), jnp.float32),
+                   jax.ShapeDtypeStruct((npad,), jnp.int32)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
+        interpret=interpret,
+        name="mesh_intersect",
+    )(rays, ex, tab, clusters)
+    return out_t[:n], out_i[:n]
 
 
 def ray_cluster_count(clusters, origin, direction, t_init):
-    """Per-ray count of matmul tiles whose AABB the ray enters closer than
+    """Per-ray count of cluster tiles whose AABB the ray enters closer than
     ``t_init`` -- the brute backend's traversal-cost metric for the debug
     AOV (VIEW_STACK_INDEX analogue, kernels/main.cl:6-13,144-147)."""
     safe = jnp.where(jnp.abs(direction) < 1e-12,
@@ -488,163 +373,44 @@ def ray_cluster_count(clusters, origin, direction, t_init):
     return jnp.sum(rel, axis=-1).astype(jnp.int32)
 
 
-def _intersect_pallas(feat, clusters, origin, direction, t_init, active,
-                      any_hit=False, exclude=None, interpret=False):
-    n = origin.shape[0]
-    c = TILE
-    tpad = feat.shape[1] // 4
-    # HBM-streamed mode for meshes past the VMEM-resident cap: pad the
-    # table to a whole number of CHUNK_TRIS-triangle chunks (zero
-    # coefficients can never hit; empty clusters never set a rel bit)
-    stream = tpad > BRUTE_MAX_TRIS
-    if stream:
-        ccols = 4 * CHUNK_TRIS
-        colpad = (-feat.shape[1]) % ccols
-        if colpad:
-            feat = jnp.pad(feat, ((0, 0), (0, colpad)))
-            ntile_pad = colpad // (4 * c)
-            empty = jnp.tile(jnp.asarray(
-                [[3e38, 3e38, 3e38, -3e38, -3e38, -3e38, 0, 0]],
-                jnp.float32), (ntile_pad, 1))
-            clusters = jnp.concatenate([clusters, empty], axis=0)
-        nchunks = feat.shape[1] // ccols
-        tpc = CHUNK_TRIS // c
-    else:
-        nchunks, tpc = 1, None
-    nt = feat.shape[1] // (4 * c)
-    pad = (-n) % BLOCK
-    npad = n + pad
-    act = active if active is not None else jnp.ones((n,), bool)
-    t_init = jnp.broadcast_to(t_init, (n,))
-    ah = jnp.broadcast_to(jnp.asarray(any_hit, jnp.float32), (n,))
-    ex = (jnp.full((n,), -1.0, jnp.float32) if exclude is None
-          else exclude.astype(jnp.float32))
-
-    grid = npad // BLOCK
-    if _os.environ.get("PRT_MESH_NOREL"):  # debug: disable tile pruning
-        nt_ = clusters.shape[0]
-        rel = jnp.full((grid * (-(-nt_ // 32)),), 0xFFFFFFFF, jnp.uint32)
-    else:
-        rel = _block_relevance(clusters, origin, direction, t_init,
-                               act, grid, BLOCK, pad).reshape(-1)
-
-    # transposed lane-aligned pack [FEAT, npad]: rows 0-9 the Moller-
-    # Trumbore ray features, rows 10-12 control (t_init/active/anyhit);
-    # built as one stack of [N] rows so no (block, 3) pallas operand ever
-    # exists (see _make_kernel LAYOUT note)
-    o0, o1, o2 = origin[:, 0], origin[:, 1], origin[:, 2]
-    d0, d1, d2 = direction[:, 0], direction[:, 1], direction[:, 2]
-    rows = [o0, o1, o2, d0, d1, d2,
-            d1 * o2 - d2 * o1, d2 * o0 - d0 * o2, d0 * o1 - d1 * o0,
-            jnp.ones((n,), jnp.float32),
-            t_init, act.astype(jnp.float32), ah, ex]
-    rows += [jnp.zeros((n,), jnp.float32)] * (FEAT - len(rows))
-    p = jnp.stack(rows, axis=0)
-    if pad:
-        p = jnp.pad(p, ((0, 0), (0, pad)))
-
-    split_terms = _SPLIT_TERMS.get(_PRECISION_NAME, ())
-    split = bool(split_terms) and feat.dtype != jnp.bfloat16
-    kfeat = len(split_terms) * FEAT if split else FEAT
-    if split:
-        # stacked-K hi/lo decomposition (see _make_kernel); loop-
-        # invariant, so XLA hoists the table split out of any scan
-        np_parts = max(j for _, j in split_terms) + 1
-        na_parts = max(i for i, _ in split_terms) + 1
-        pp = _hi_lo_parts(p, np_parts)
-        ap = _hi_lo_parts(feat, na_parts)
-        p = jnp.concatenate([pp[j] for _, j in split_terms], axis=0)
-        feat = jnp.concatenate([ap[i] for i, _ in split_terms], axis=0)
-    operands = (rel, p, feat)
-    mm_passes = len(split_terms) if split else 1
-    if stream:
-        # 2-D grid, chunks INNERMOST: the same output block is revisited
-        # across consecutive steps (accumulation) while pallas double-
-        # buffers the next table chunk from HBM.  Traffic floor:
-        # nblocks x table bytes per dispatch.
-        grid_spec = (grid, nchunks)
-        in_specs = [pl.BlockSpec(memory_space=pltpu.SMEM),
-                    pl.BlockSpec((kfeat, BLOCK), lambda i, j: (0, i),
-                                 memory_space=pltpu.VMEM),
-                    pl.BlockSpec((kfeat, ccols), lambda i, j: (0, j),
-                                 memory_space=pltpu.VMEM)]
-        out_specs = (
-            pl.BlockSpec((1, BLOCK), lambda i, j: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, BLOCK), lambda i, j: (0, i),
-                         memory_space=pltpu.VMEM),
-        )
-        bytes_est = grid * feat.shape[0] * feat.shape[1] * feat.dtype.itemsize \
-            + npad * 8 * 4
-    else:
-        grid_spec = (grid,)
-        in_specs = [pl.BlockSpec(memory_space=pltpu.SMEM),
-                    pl.BlockSpec((kfeat, BLOCK), lambda i: (0, i),
-                                 memory_space=pltpu.VMEM),
-                    pl.BlockSpec((kfeat, feat.shape[1]), lambda i: (0, 0),
-                                 memory_space=pltpu.VMEM)]
-        out_specs = (
-            pl.BlockSpec((1, BLOCK), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, BLOCK), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        )
-        bytes_est = npad * 8 * 4 + feat.size * feat.dtype.itemsize
-
-    out_t, out_i = pl.pallas_call(
-        _make_kernel(nt, c, BLOCK, split, split_terms,
-                     tpc=tpc, nchunks=nchunks),
-        grid=grid_spec,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=(
-            jax.ShapeDtypeStruct((1, npad), jnp.float32),
-            jax.ShapeDtypeStruct((1, npad), jnp.int32),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * npad * FEAT * 4 * feat.shape[1] * mm_passes,
-            bytes_accessed=int(bytes_est),
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(*operands)
-    return out_t[0, :n], out_i[0, :n]
-
-
-def uses_pallas() -> bool:
-    """True when mesh_intersect will take the TPU pallas kernel path
-    (callers gate pallas-specific backstops -- e.g. the validate-reject
-    second pass -- on this; the XLA path is exact and never needs them).
-    """
-    return (jax.devices()[0].platform == "tpu"
-            and not _os.environ.get("PRT_MESH_FORCE_XLA"))
+def uses_kernel() -> bool:
+    """True when mesh_intersect's default route is the GPU kernel."""
+    return jax.devices()[0].platform == "gpu"
 
 
 def mesh_intersect(feat, clusters, origin, direction, t_init, active=None,
-                   any_hit=False, exclude=None):
-    """Closest mesh hit by exhaustive matmul testing.
+                   any_hit=False, exclude=None, reference=False):
+    """Closest mesh hit by exhaustive testing.
 
     Returns (t [N], tri [N] int32 index into the compact bf arrays, -1 on
     miss); t falls back to t_init when no triangle beats it.  ``any_hit``
     may be a python bool or a PER-LANE [N] array (mixed shadow/closest
-    batches share one dispatch): for any-hit lanes the returned t is
-    t_init everywhere and only tri >= 0 (occluded) is meaningful; occluded
-    lanes stop scanning clusters early.
-    Fully detached (gradients reattach through the chosen triangle).
+    batches share one dispatch): for any-hit lanes only tri >= 0
+    (occluded) is meaningful.  Fully detached (gradients reattach through
+    the chosen triangle).
+
+    The route follows the default device: the Triton kernel on a GPU, the
+    plain reference on the CPU; ``reference=True`` forces the plain
+    reference anywhere.  Other platforms are refused.
     """
     origin = jax.lax.stop_gradient(origin)
     direction = jax.lax.stop_gradient(direction)
     t_init = jax.lax.stop_gradient(t_init)
     feat = jax.lax.stop_gradient(feat)
+    clusters = jax.lax.stop_gradient(clusters)
     if active is not None:
         active = jax.lax.stop_gradient(active)
     if exclude is not None:
         exclude = jax.lax.stop_gradient(exclude)
-    if (jax.devices()[0].platform == "tpu"
-            and not _os.environ.get("PRT_MESH_FORCE_XLA")):
-        return _intersect_pallas(feat, clusters, origin, direction, t_init,
+    platform = jax.devices()[0].platform
+    if platform == "gpu" and not reference:
+        return _intersect_triton(feat, clusters, origin, direction, t_init,
                                  active, any_hit=any_hit, exclude=exclude)
-    # the XLA fallback always computes the closest hit; that subsumes
-    # any-hit semantics (tri >= 0 iff some triangle is closer than t_init)
-    return _intersect_xla(feat, clusters, origin, direction, t_init, active,
-                          exclude=exclude)
+    if platform in ("cpu", "gpu"):
+        # the reference always computes the closest hit; that subsumes
+        # any-hit semantics (tri >= 0 iff some triangle is closer than
+        # t_init)
+        return _intersect_xla(feat, clusters, origin, direction, t_init,
+                              active, exclude=exclude)
+    raise NotImplementedError(
+        f"no mesh intersection route for platform {platform!r}")

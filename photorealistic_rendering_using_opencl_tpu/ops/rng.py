@@ -7,7 +7,7 @@ Every random decision in the tracer draws from a *fixed dimension index*,
 so results are bit-reproducible regardless of device count or sharding --
 the property the reference lacks (SURVEY §2.4 RNG row).
 
-Three schemes, selected statically (the TPU analogue of RNG_TYPE in
+Three schemes, selected statically (the analogue of RNG_TYPE in
 ``kernels/header.cl:124-143``, which also offers three):
   * "threefry": threefry2x32, 20 rounds -- crypto-grade, default.
   * "pcg4d": the PCG4D hash of Jarzynski & Olano -- ~3x cheaper, fine for

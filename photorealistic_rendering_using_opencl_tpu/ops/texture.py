@@ -1,6 +1,6 @@
 """Texture sampling: bilinear / trilinear-mip / anisotropic, batched.
 
-Working TPU-native counterpart of the reference's dormant texture atlas
+Working counterpart of the reference's dormant texture atlas
 sampler (``kernels/texture.cl:6-60`` references undefined symbols and is
 not included anywhere; SURVEY §2.2).  Textures are [H,W,C] arrays; mip
 pyramids are tuples built host-side once.  UVs wrap; LOD is continuous.

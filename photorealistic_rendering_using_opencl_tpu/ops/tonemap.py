@@ -24,22 +24,11 @@ def filmic_reinhard(x):
 
 
 def tonemap(img: jnp.ndarray, vignette: bool = True,
-            brightness: float = 1.0, use_pallas: bool | None = None
-            ) -> jnp.ndarray:
+            brightness: float = 1.0) -> jnp.ndarray:
     """img[H,W,3] linear radiance -> display RGB in [0,1].
 
-    On TPU the fused single-pass Pallas kernel is used by default
-    (ops/pallas_kernels.py); pass use_pallas=False to force this pure-JAX
-    reference implementation.
+    An elementwise chain that XLA fuses into one pass over the image.
     """
-    if use_pallas is None:
-        import jax
-        use_pallas = jax.devices()[0].platform == "tpu"
-    if use_pallas:
-        from photorealistic_rendering_using_opencl_tpu.ops.pallas_kernels import (
-            tonemap_pallas,
-        )
-        return tonemap_pallas(img, vignette=vignette, brightness=brightness)
     h, w = img.shape[0], img.shape[1]
     color = img
     if vignette:

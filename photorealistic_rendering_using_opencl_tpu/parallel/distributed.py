@@ -1,11 +1,11 @@
 """Multi-host bootstrap: jax.distributed init + global mesh construction.
 
 The reference is single-device with no communication backend (SURVEY §2.4);
-this is the cross-host story the TPU build adds: every host runs the same
-SPMD program, the scene/BVH/env-map pytree is replicated per chip (broadcast
-once over DCN at load), pixels shard over the global ``rays`` axis, and the
-only recurring cross-chip traffic is the training step's gradient ``psum``
-riding ICI (parallel/render.py:make_train_step).
+this is the cross-host story added here: every host runs the same SPMD
+program, the scene/BVH/env-map pytree is replicated per device (broadcast
+once at load), pixels shard over the global ``rays`` axis, and the only
+recurring cross-device traffic is the training step's gradient ``psum``
+(parallel/render.py:make_train_step).
 """
 from __future__ import annotations
 
@@ -23,10 +23,9 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Initialize jax.distributed for a multi-host slice.
 
-    On Cloud TPU the arguments auto-detect from the metadata server; on
-    other clusters they come from the standard env vars
+    The arguments come from the standard env vars
     (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID) or the
-    explicit parameters.  Idempotent: a second call is a no-op.
+    explicit parameters; a cluster without them must pass all three.  Idempotent: a second call is a no-op.
     """
     if getattr(initialize, "_done", False):
         return
@@ -50,8 +49,8 @@ def global_mesh(axis: str = RAYS_AXIS) -> Mesh:
 
     A single flat ``rays`` axis is the right shape for a path tracer: data
     parallelism over pixels needs no second axis, so all collectives are
-    single-axis psums that XLA maps onto ICI rings within a host and DCN
-    between hosts automatically.
+    single-axis psums that XLA hands to the collective library (NCCL on
+    GPUs) within and between hosts.
     """
     return Mesh(np.asarray(jax.devices()), (axis,))
 

@@ -8,7 +8,7 @@ every chip's HBM, and the only cross-chip traffic is
 
   * nothing at all for forward rendering (each shard owns its pixels), and
   * one ``psum`` over the mesh for parameter gradients in ``train_step``
-    (the ICI all-reduce the BASELINE north star calls for).
+    (the gradient all-reduce the BASELINE north star calls for).
 
 Counter-based RNG keyed on the *global* pixel id makes the image bitwise
 independent of the device count.
@@ -109,7 +109,7 @@ def render_sharded(cfg: SceneConfig, scene: SceneData, cam: Any,
 
 
 # ---------------------------------------------------------------------------
-# Differentiable training step with ICI gradient all-reduce
+# Differentiable training step with a gradient all-reduce
 # ---------------------------------------------------------------------------
 
 def make_train_step(cfg: SceneConfig, width: int, height: int, spp: int,
@@ -121,7 +121,7 @@ def make_train_step(cfg: SceneConfig, width: int, height: int, spp: int,
     Gradients flow through the detached-sampling estimator (pdf-weighted
     contributions); discrete sampling decisions take zero gradient, the
     BASELINE-scoped semantics.  Parameter gradients are `psum` over the
-    mesh -- the ICI all-reduce the north star requires -- and a plain SGD
+    mesh -- the all-reduce the north star requires -- and a plain SGD
     update keeps every replica's scene bitwise identical.
     """
     n_dev = mesh.devices.size
@@ -150,7 +150,7 @@ def make_train_step(cfg: SceneConfig, width: int, height: int, spp: int,
         # hands every shard its LOCAL pixels' gradient scaled by n_dev, so
         # out_specs=P() silently published shard 0's local gradient as the
         # step (caught by tools/spmd_audit.py: the compiled step moved only
-        # the 4-byte loss scalar across chips).  The ICI all-reduce over
+        # the 4-byte loss scalar across chips).  The all-reduce over
         # parameter gradients must be explicit; /n_dev cancels the
         # transpose's replication factor.  tests/test_parallel_extra.py
         # pins update equality across device counts.

@@ -1,13 +1,13 @@
-// Native host runtime for the TPU path tracer: SAH BVH builder + OBJ loader.
+// Native host runtime for the path tracer: SAH BVH builder + OBJ loader.
 //
-// TPU-native equivalent of the reference's C++ host components:
+// Equivalent of the reference's C++ host components:
 //   * BVH build: replaces the external madmann91/bvh SweepSahBuilder used by
-//     /root/reference/src/BVH/bvh.cpp:43-108, but emits a DFS-threaded
+//     the reference's src/BVH/bvh.cpp:43-108, but emits a DFS-threaded
 //     (skip-link) node layout for the stackless device traversal in
 //     ops/intersect.py instead of the child-pointer layout of
 //     include/BVH/bvh.h:24-30.
 //   * OBJ import: replaces the Assimp path of
-//     /root/reference/src/Models/model_loader.cpp:16-431 with a direct
+//     the reference's src/Models/model_loader.cpp:16-431 with a direct
 //     triangle-soup parser + area-weighted smooth normals (the reference's
 //     aiProcessPreset_TargetRealtime_Quality post-process does the same).
 //

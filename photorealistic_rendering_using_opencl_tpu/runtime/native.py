@@ -1,6 +1,6 @@
 """ctypes bindings for the native (C++) host runtime.
 
-The compute path is JAX/XLA/Pallas on TPU; this module is the *host* side
+The compute path is JAX/XLA/Pallas on the accelerator; this module is the *host* side
 -- one-time scene setup that the reference also does in native code (BVH
 build ``src/BVH/bvh.cpp``, model import ``src/Models/model_loader.cpp``).
 The shared library is compiled lazily from ``csrc/prt_native.cpp`` with the

@@ -1,8 +1,8 @@
 """Terminal image preview: truecolor half-block rendering.
 
 The reference displays the accumulating render in a GLFW window refreshed
-every frame (include/GL/cl_gl_interop.h:174, drawGL).  On a TPU pod there
-is no GL; the closest faithful analogue is drawing the tonemapped image
+every frame (include/GL/cl_gl_interop.h:174, drawGL).  On a headless
+accelerator host there is no GL; the closest faithful analogue is drawing the tonemapped image
 into the terminal with 24-bit ANSI half-blocks (U+2580: foreground colors
 the top pixel, background the bottom), giving 2 pixels per character cell
 in any truecolor terminal.  The interactive shell redraws it in place for

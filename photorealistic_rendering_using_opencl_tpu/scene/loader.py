@@ -24,42 +24,24 @@ from photorealistic_rendering_using_opencl_tpu.scene.types import (
 )
 
 
-def _mesh_table_dtype():
-    """Coefficient-table dtype for the MXU brute kernel.
-
-    Default f32: the bf16 ablation (tools/bench_kernel.py, PERF.md
-    round-4) measured a 4% mean-radiance bias on cornell -- the
-    den-multiplied edge tests (u*den, v*den) cancel two O(|p0||e2|) terms
-    down to ~1e-3 signal, below bf16's ~4e-4 quantization noise, so edge
-    hits flip wholesale (1.8% of winner indices, 0.3% hit/miss).  Exact
-    f32 t/u/v re-derivation (tri_reattach) cannot repair a wrong winner.
-    PRT_MESH_DTYPE=bf16 keeps the measured path runnable."""
-    forced = os.environ.get("PRT_MESH_DTYPE", "")
-    if forced == "bf16":
-        return jnp.bfloat16
-    return jnp.float32
-
-
 def _pick_mesh_accel(n_tris: int) -> str:
-    """Brute-force MXU testing wins while the coefficient table fits VMEM
-    (<= BRUTE_MAX_TRIS) and keeps winning via the HBM-streamed chunked
-    kernel up to BRUTE_STREAM_MAX_TRIS (measured 4.1x the skip-link walk
-    at 82k tris, PERF.md round-5); only past that does the walk's
-    sub-linear traffic growth win back.  On CPU (tests, local preview)
-    exhaustive testing has no MXU to lean on, so the crossover is much
-    earlier.  PRT_MESH_ACCEL overrides."""
+    """Exhaustive testing ("brute") up to a per-platform mesh size, the
+    skip-link walk ("bvh") past it.  On the GPU the crossover is
+    mesh_brute.GPU_BRUTE_MAX_TRIS (measured, PERF.md); on the CPU
+    exhaustive testing pays only for small meshes.  PRT_MESH_ACCEL
+    overrides."""
     forced = os.environ.get("PRT_MESH_ACCEL", "")
-    if forced in ("brute", "bvh"):
+    if forced in ("brute", "reference", "bvh"):
         return forced
     import jax
-    if jax.devices()[0].platform != "tpu":
-        return "brute" if n_tris <= 2048 else "bvh"
-    return "brute" if n_tris <= mesh_brute.BRUTE_STREAM_MAX_TRIS else "bvh"
+    if jax.devices()[0].platform == "gpu":
+        return "brute" if n_tris <= mesh_brute.GPU_BRUTE_MAX_TRIS else "bvh"
+    return "brute" if n_tris <= 2048 else "bvh"
+
 
 _DEFAULT_MODEL_DIRS = (
     "resources/models",
     "scenes/assets",
-    "/root/reference/resources/models",
 )
 
 
@@ -119,6 +101,9 @@ def load_scene(path: str, models_dir: str | None = None,
     """
     with open(path) as fh:
         doc = json.load(fh)
+    if models_dir is None:
+        # assets ship beside the scene files (scenes/assets/)
+        models_dir = os.path.join(os.path.dirname(path), "assets")
     return build_scene(doc, models_dir=models_dir, env_map=env_map,
                        alpha_testing=alpha_testing,
                        phase_function=phase_function,
@@ -160,7 +145,7 @@ def build_scene(doc: dict, models_dir: str | None = None,
     if tri_v is not None:
         bvh = bvh_build.build_bvh(tri_v)
         n_tris = bvh.order.shape[0]
-        # MXU brute-force tables use the BVH triangle order (spatially
+        # brute-force tables use the BVH triangle order (spatially
         # compact tiles) but the un-padded compact layout
         brute = mesh_brute.pack_brute(np.asarray(tri_v)[bvh.order],
                                       np.asarray(tri_n)[bvh.order])
@@ -286,9 +271,6 @@ def build_scene(doc: dict, models_dir: str | None = None,
         alpha_testing=alpha_testing,
         has_env_map=env_map is not None,
         mesh_accel=_pick_mesh_accel(n_tris),
-        # block-coherence ray sorting pays exactly when the table streams
-        # (many tiles/block; see SceneConfig.mesh_sort_rays)
-        mesh_sort_rays=n_tris > mesh_brute.BRUTE_MAX_TRIS,
     )
 
     # the reference clamps all rays at INF = 20 world units (header.cl:5),
@@ -335,7 +317,7 @@ def build_scene(doc: dict, models_dir: str | None = None,
         data.bvh_nodes = jnp.asarray(packed[0])
         data.leaf_verts = jnp.asarray(packed[1])
         data.bvh_links = jnp.asarray(packed[4])
-        data.bf_feat = jnp.asarray(brute.feat, dtype=_mesh_table_dtype())
+        data.bf_feat = jnp.asarray(brute.feat)
         data.bf_clusters = jnp.asarray(brute.clusters)
         data.bf_tri_verts = jnp.asarray(brute.tri_verts)
         data.bf_tri_normals = jnp.asarray(brute.tri_normals)

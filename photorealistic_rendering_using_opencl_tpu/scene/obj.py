@@ -130,3 +130,65 @@ def make_icosphere(subdiv: int = 2, radius: float = 1.0,
     tri_v = verts[f] * radius + ctr
     tri_n = verts[f]  # unit sphere normal == position
     return tri_v.astype(np.float32), tri_n.astype(np.float32)
+
+
+
+def torus_knot_mesh(p: int = 2, q: int = 3, segments: int = 158,
+                    sides: int = 20, scale: float = 0.25,
+                    tube: float = 0.15, center=(0.0, 0.6, 0.0)):
+    """Procedural (p, q) torus knot tube as (positions, normals, faces).
+
+    2 * segments * sides triangles.  The defaults give the flagship
+    cornell mesh (6,320 triangles, the reference teapot's count): a
+    non-convex, self-shadowing tube lying in the xz-plane above the box
+    floor.  Normals are the analytic tube normals (vertex minus
+    knot-curve point); faces wind counter-clockwise seen from outside.
+    """
+    phi = 2.0 * np.pi * np.arange(segments) / segments
+
+    def curve(a):
+        r = 2.0 + np.cos(q * a)
+        # knot plane xy mapped to world xz; its out-of-plane wobble is y
+        return np.stack([r * np.cos(p * a), -np.sin(q * a),
+                         r * np.sin(p * a)], axis=-1) * scale
+
+    c = curve(phi)
+    tangent = curve(phi + 1e-4) - curve(phi - 1e-4)
+    tangent /= np.linalg.norm(tangent, axis=-1, keepdims=True)
+    # frame: the component of "up" orthogonal to the tangent, then binormal
+    up = np.array([0.0, 1.0, 0.0])
+    n1 = up - tangent * (tangent @ up)[:, None]
+    n1 /= np.linalg.norm(n1, axis=-1, keepdims=True)
+    n2 = np.cross(tangent, n1)
+    theta = 2.0 * np.pi * np.arange(sides) / sides
+    nrm = (np.cos(theta)[None, :, None] * n1[:, None, :]
+           + np.sin(theta)[None, :, None] * n2[:, None, :])  # [S,V,3]
+    pos = c[:, None, :] + tube * nrm + np.asarray(center)
+    i = np.arange(segments)[:, None]
+    j = np.arange(sides)[None, :]
+    i1, j1 = (i + 1) % segments, (j + 1) % sides
+    a, b = i * sides + j, i1 * sides + j
+    cc, d = i1 * sides + j1, i * sides + j1
+    faces = np.concatenate([np.stack([a, cc, b], -1).reshape(-1, 3),
+                            np.stack([a, d, cc], -1).reshape(-1, 3)])
+    return (pos.reshape(-1, 3).astype(np.float32),
+            nrm.reshape(-1, 3).astype(np.float32), faces)
+
+
+def make_torus_knot(**kw):
+    """``torus_knot_mesh`` as a (verts[T,3,3], normals[T,3,3]) soup."""
+    pos, nrm, faces = torus_knot_mesh(**kw)
+    return pos[faces], nrm[faces]
+
+
+def write_obj(path: str, pos, nrm, faces, comment: str = "") -> None:
+    """Indexed mesh -> OBJ with ``v``/``vn`` pairs sharing one index."""
+    with open(path, "w") as fh:
+        if comment:
+            fh.write(f"# {comment}\n")
+        for x in np.asarray(pos):
+            fh.write(f"v {x[0]:.6f} {x[1]:.6f} {x[2]:.6f}\n")
+        for x in np.asarray(nrm):
+            fh.write(f"vn {x[0]:.6f} {x[1]:.6f} {x[2]:.6f}\n")
+        for f in np.asarray(faces) + 1:
+            fh.write(f"f {f[0]}//{f[0]} {f[1]}//{f[1]} {f[2]}//{f[2]}\n")

@@ -1,6 +1,6 @@
 """Phong tessellation: curved-triangle evaluation + conservative AABBs.
 
-TPU-native equivalent of the reference's dormant Phong-tessellation
+Batched equivalent of the reference's dormant Phong-tessellation
 support (``src/Math/MathHelp.cpp:144-281``, compiled out with
 RENDER_PHONGTESS = 0).  The surface point blends the barycentric point
 with its projections onto the three vertex tangent planes

@@ -2,7 +2,7 @@
 
 Reproduces the semantics of the reference's type headers
 (``include/Types/material.h:9-120``, ``include/Scene/geometry.h:10-28``,
-``include/Types/media.h:5-11``) with a TPU-first layout: instead of an
+``include/Types/media.h:5-11``) with an accelerator-first layout: instead of an
 array-of-structs ``Mesh`` with a 16-float ``joker`` slot, every per-object
 attribute is its own SoA array (static shape, padded), so the whole scene
 is a pytree that `jax.jit` can specialize on.  The jit specialization on
@@ -100,7 +100,7 @@ PT_K = (4.7023, 3.7726, 2.7284)
 class SceneConfig:
     """Static (hashable) scene facts that `jax.jit` specializes on.
 
-    The TPU analogue of the reference's scene-specializing kernel
+    The analogue of the reference's scene-specializing kernel
     preprocessor (``include/CL/cl_kernel.h:115-439``): geometry/material
     presence flags gate dead code out of the compiled trace, and the bounce
     budgets become scan lengths / termination constants.
@@ -149,42 +149,21 @@ class SceneConfig:
     # reference, SURVEY §7 stage 8); only meaningful when has_env_map
     enable_env_sampling: bool = True
 
-    # mesh intersection backend: "brute" = MXU matmul testing with a
-    # VMEM-resident (or HBM-streamed) coefficient table
-    # (ops/mesh_brute.py), "bvh" = skip-link BVH walk (ops/intersect.py).
+    # mesh intersection backend (ops/intersect.py:mesh_closest):
+    # "brute" = relevance-pruned exhaustive testing, routed by platform
+    # (the Triton kernel on a GPU, the plain XLA reference on the CPU);
+    # "reference" = the plain XLA reference on every platform (the GPU
+    # kernel's comparison baseline); "bvh" = skip-link BVH walk.
     mesh_accel: str = "brute"
-
-    # sort rays by (direction octant, quantized origin cell) before the
-    # brute kernel dispatch and unsort the results: block-coherent rays
-    # shrink each block's relevant-tile union (random interior rays on
-    # the teapot: 12.1 -> 5.3 of 13 tiles/block measured).  Exactly
-    # result-invariant (relevance is conservative per lane, so a pure
-    # permutation of lanes cannot change any lane's winner).  The
-    # argsort+permute overhead is ~8 ms per 2N dispatch -- a wash for
-    # VMEM-resident meshes, a win for HBM-streamed ones (160+ tiles),
-    # so the loader enables it exactly when the mesh streams.
-    mesh_sort_rays: bool = False
-
-    # OPT-IN second brute dispatch for lanes whose kernel winner failed
-    # the exact f32 re-test (_validate_winner): re-searches with the
-    # false winner excluded instead of falling back past the mesh.
-    # Measured (round 5): shaves the TPU-vs-CPU radiance bias 0.851% ->
-    # 0.712% but costs +43% fwd+bwd (the extra relevance pass + dispatch
-    # run every iteration), so it stays off by default -- most of the
-    # residual is grazing false MISSES no second search can recover
-    # (tools/tpu_radiance_parity.py decomposition; PERF.md round-5).
-    # Only meaningful on the TPU kernel path.
-    mesh_second_pass: bool = False
 
     # opt-in gradients w.r.t. the mesh VERTEX/NORMAL TABLES.  The
     # transpose of the per-bounce [N,9] table gathers (tri_reattach,
     # bvh_smooth_normal) is a scatter-add into the [T,9] tables every
-    # bounce -- measured 2.9x the whole fwd+bwd step at 512^2 x 4 spp
-    # (tools/bwd_anatomy.py, PERF.md round-4).  Off by default: ray
-    # origin/direction gradients (camera, upstream-bounce materials) and
-    # every other parameter still flow; only d(image)/d(vertex) is cut,
-    # which the BASELINE grad surface (material/camera/envmap) never
-    # demanded.  Flip on for vertex-position optimization.
+    # bounce.  Off by default: ray origin/direction gradients (camera,
+    # upstream-bounce materials) and every other parameter still flow;
+    # only d(image)/d(vertex) is cut, which the BASELINE grad surface
+    # (material/camera/envmap) never demanded.  Flip on for
+    # vertex-position optimization.
     mesh_vertex_grads: bool = False
 
     @property
@@ -249,7 +228,7 @@ class SceneData:
     bvh_nodes: jnp.ndarray  # [M,8] bmin|bmax|bitcast(miss)|bitcast(meta)
     bvh_links: jnp.ndarray  # [8*M,2] per-octant (hit, miss) threading
     leaf_verts: jnp.ndarray  # [L, LEAF_SIZE*9] leaf triangle rows
-    # MXU brute-force tables (ops/mesh_brute.py), BVH-order compact layout
+    # brute-force tables (ops/mesh_brute.py), BVH-order compact layout
     bf_feat: jnp.ndarray  # [16, 4*Tpad] Moller-Trumbore coefficient table
     bf_clusters: jnp.ndarray  # [NT,8] per-tile AABBs for tile skipping
     bf_tri_verts: jnp.ndarray  # [Tpad,3,3] triangles in bf index order

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import Any
 
 from photorealistic_rendering_using_opencl_tpu.scene.types import SceneConfig
@@ -34,3 +35,22 @@ def manifest(cfg: SceneConfig, width: int, height: int, spp: int,
         "width": width, "height": height, "spp": spp, "seed": seed,
         **(extra or {}),
     }, sort_keys=True)
+
+
+# the checkout root (this file is <root>/<package>/utils/config.py)
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache and return its directory.
+
+    ``$JAX_COMPILATION_CACHE_DIR`` wins when set (JAX reads it itself);
+    otherwise the cache lives at a fixed ``<checkout>/.jax_cache`` -- a
+    fixed path, because the path is part of the cache key.
+    """
+    import jax
+    path = (os.environ.get("JAX_COMPILATION_CACHE_DIR")
+            or os.path.join(REPO_ROOT, ".jax_cache"))
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path

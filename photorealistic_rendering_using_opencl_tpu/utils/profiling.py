@@ -3,7 +3,7 @@
 The reference's profiling is printf wall-timing (BVH build ``src/BVH/
 bvh.cpp:45-66``, kernel time ``src/main.cpp:243-271``; SURVEY §5).  Here:
 structured counters + optional ``jax.profiler`` traces viewable in
-TensorBoard/XProf, the idiomatic TPU observability path.
+TensorBoard/XProf or Perfetto.
 """
 from __future__ import annotations
 

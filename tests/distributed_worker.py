@@ -16,7 +16,6 @@ os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "")
     + " --xla_force_host_platform_device_count=2"
 )
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
 os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
 os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
 
@@ -28,6 +27,10 @@ def main() -> None:
 
     import jax
     jax.config.update("jax_platforms", "cpu")
+    from photorealistic_rendering_using_opencl_tpu.utils.config import (
+        enable_compile_cache,
+    )
+    enable_compile_cache()
 
     from photorealistic_rendering_using_opencl_tpu.parallel import distributed
 

@@ -34,9 +34,9 @@ CONFIGS = {
     "alpha_test": dict(scene="scenes/cornell_simple.json", spp=8,
                        alpha=True),
     "coat_grazing": dict(scene="scenes/coat_grazing.json", spp=8),
-    # 81,920-triangle mesh: exceeds the brute kernel's VMEM cap, so the
-    # loader auto-picks the skip-link BVH walk -- pins both the fallback
-    # selection and the walk at >32k-triangle scale (VERDICT r4 weak #5)
+    # 81,920-triangle mesh: on the CPU the loader auto-picks the skip-link
+    # BVH walk -- pins both the fallback selection and the walk at
+    # >32k-triangle scale
     "cornell_hi_bvh": dict(scene="scenes/cornell_hi.json", spp=2),
 }
 SIZE = 32

@@ -1,11 +1,15 @@
 """Cross-host execution test: 2 real processes over jax.distributed.
 
 The last SURVEY §2.4 coverage row: ``parallel/distributed.py`` must
-actually run as more than one process.  Real multi-host TPU hardware is
-unavailable here, but ``jax.distributed`` works over localhost gRPC with
-the CPU backend -- each worker owns 2 virtual CPU devices, the global mesh
-spans 4, and the workers validate a sharded render + a distributed train
-step against single-device references (tests/distributed_worker.py).
+actually run as more than one process.  ``jax.distributed`` works over
+localhost gRPC with the CPU backend -- each worker owns 2 virtual CPU
+devices, the global mesh spans 4, and the workers validate a sharded
+render + a distributed train step against single-device references
+(tests/distributed_worker.py).
+
+The workers run under ``JAX_PLATFORMS=cpu`` only: this test starts several
+JAX processes, and on a GPU machine each would try to reserve most of the
+same card's memory.  Keep it on the CPU.
 """
 from __future__ import annotations
 
@@ -30,8 +34,8 @@ def test_two_process_distributed():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     worker = os.path.join(root, "tests", "distributed_worker.py")
     addr = f"127.0.0.1:{_free_port()}"
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["JAX_PLATFORMS"] = "cpu"
     procs = [
         subprocess.Popen(
             [sys.executable, worker, addr, "2", str(pid)],

@@ -9,7 +9,7 @@ from photorealistic_rendering_using_opencl_tpu.ops import envmap
 from photorealistic_rendering_using_opencl_tpu.models import pathtracer
 from photorealistic_rendering_using_opencl_tpu.ops.camera_rays import default_camera
 from photorealistic_rendering_using_opencl_tpu.scene.loader import build_scene
-from tests.conftest import uniform_grid
+from conftest import uniform_grid
 
 
 def _hotspot_env(h=16, w=32, bright=50.0):

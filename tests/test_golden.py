@@ -11,7 +11,7 @@ import os
 import numpy as np
 import pytest
 
-from tests.golden_tool import CONFIGS, GOLDEN_DIR, render_config
+from golden_tool import CONFIGS, GOLDEN_DIR, render_config
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -28,11 +28,10 @@ def test_golden(name):
 
 
 def test_cornell_hi_auto_picks_walk_on_cpu():
-    """82k-tri auto-pick: on CPU (this test env) exhaustive testing has
-    no MXU, so the skip-link walk carries it; on TPU the loader instead
-    picks the HBM-streamed brute kernel (crossover at
-    BRUTE_STREAM_MAX_TRIS; measured numbers in PERF.md round-5)."""
+    """82k-tri auto-pick: on the CPU (this test env) exhaustive testing
+    pays only for small meshes, so the skip-link walk carries it; the GPU
+    pick follows mesh_brute.GPU_BRUTE_MAX_TRIS (measured, PERF.md)."""
     from photorealistic_rendering_using_opencl_tpu.scene.loader import load_scene
     cfg, _ = load_scene("scenes/cornell_hi.json")
     assert cfg.n_triangles == 81920
-    assert cfg.mesh_accel == "bvh"  # CPU pick; TPU pick covered by tools
+    assert cfg.mesh_accel == "bvh"  # CPU pick

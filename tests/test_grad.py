@@ -352,7 +352,7 @@ def test_sanitizer_detects_planted_nan(monkeypatch):
 def test_inverse_rendering_regen_scan_driver():
     """fit_scene(method="regen_scan"): the fast differentiable driver
     optimizes the same scene to the same place as "scan" (identical
-    estimator, counter-keyed RNG; 3x rate on TPU, PERF.md r5)."""
+    estimator, counter-keyed RNG)."""
     from photorealistic_rendering_using_opencl_tpu.diff import fit_scene
     cfg, scene = build_scene(CORNELL)
     cam = default_camera(W, H).pytree()

@@ -67,8 +67,7 @@ def test_interactive_cli_continuous_accumulation(tmp_path):
         "from photorealistic_rendering_using_opencl_tpu.runtime.app import main\n"
         "sys.exit(main())\n"
     )
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               JAX_COMPILATION_CACHE_DIR="/tmp/jaxcache")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run([sys.executable, "-c", code],
                        input="orbit 10 5\nq\n", text=True,
                        capture_output=True, timeout=240, env=env,

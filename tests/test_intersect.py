@@ -159,9 +159,10 @@ def test_bvh_leaf_invariants():
     assert ((bvh.miss > np.arange(m)) & (bvh.miss <= m)).all()
 
 
-def test_bvh_traverse_chunked_matches_unchunked(rng):
+def test_bvh_traverse_chunked_matches_unchunked(rng, monkeypatch):
     """n > TRAVERSE_CHUNK exercises the lax.map chunking; results must be
     identical to the single-chunk walk."""
+    monkeypatch.setattr(intersect, "TRAVERSE_CHUNK", 4096)
     tri_v, tri_n = obj_io.make_icosphere(subdiv=2)
     bvh = bvh_build.build_bvh(tri_v)
     nodes, leaf_verts, lm_v, lm_n, links = bvh_build.pack_for_device(

@@ -1,9 +1,9 @@
-"""Profile the fwd+bwd regen_scan frame on TPU and print top device ops.
+"""Profile the fwd+bwd regen_scan frame and print the top device ops.
 
-The bwd_anatomy variants bound WHICH parameter groups cost the backward
-time; this captures an op-level jax.profiler trace of the full
-value_and_grad dispatch so the expensive HLO ops can be named (fusion
-sources, transposes, reductions, matmuls).  Usage:
+Captures an op-level jax.profiler trace of the full value_and_grad
+dispatch so the expensive HLO ops can be named (fusion sources,
+transposes, reductions, matmuls).  The trace lands in
+chiprun_out/bwd_trace.  Usage:
 
     python tools/bwd_trace.py [width] [spp] [mode]
 
@@ -21,20 +21,23 @@ import shutil
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-import jax.numpy as jnp
-import numpy as np
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
-TRACE_DIR = "/tmp/bwd_trace"
+from photorealistic_rendering_using_opencl_tpu.utils.config import (  # noqa: E402
+    enable_compile_cache,
+)
+
+TRACE_DIR = "chiprun_out/bwd_trace"
 
 
 def main():
     width = int(sys.argv[1]) if len(sys.argv) > 1 else 512
     spp = int(sys.argv[2]) if len(sys.argv) > 2 else 4
     mode = sys.argv[3] if len(sys.argv) > 3 else "all"
+    enable_compile_cache()
 
     from photorealistic_rendering_using_opencl_tpu.models import pathtracer
     from photorealistic_rendering_using_opencl_tpu.ops.camera_rays import (

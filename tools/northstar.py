@@ -1,8 +1,7 @@
 """Run the BASELINE north-star shape: cornell 1024^2 fwd+bwd at full depth.
 
-Three rounds of VERDICTs asked for a real number at this shape
-(BASELINE.md: 1024^2, 256 spp, fwd+bwd < 10 s on v5e-8).  This tool
-measures it on the one available chip:
+BASELINE.md's target is 1024^2 x 256 spp fwd+bwd in under 10 s on 8
+chips.  This tool measures the shape at low spp on the available device:
 
   * direct: value_and_grad of the mean-image loss over the whole 1024^2
     frame via trace_regen_scan (the bench path, 4x the bench lane count);
@@ -23,7 +22,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
@@ -41,7 +39,11 @@ def main():
         default_camera,
     )
     from photorealistic_rendering_using_opencl_tpu.scene.loader import load_scene
+    from photorealistic_rendering_using_opencl_tpu.utils.config import (
+        enable_compile_cache,
+    )
 
+    enable_compile_cache()
     cfg, scene = load_scene("scenes/cornell.json")
     cam = default_camera(width, width).pytree()
     px, py = pathtracer.pixel_grid(width, width)

@@ -6,8 +6,8 @@ SPMD overhead on an 8-way virtual CPU mesh: per-device pixel count is held
 FIXED while the mesh grows (weak scaling), so ideal time is flat and
 efficiency = t(1) / t(n).  The forward path has no collectives (scene
 replicated, pixels sharded) -- overhead measured here is shard_map
-dispatch + padding + XLA partitioning, the part that would ride ICI for
-real.  Run:
+dispatch + padding + XLA partitioning, the part that would ride the
+interconnect for real.  Run:
 
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
       python tools/scaling_bench.py
@@ -21,25 +21,28 @@ import time
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                            + " --xla_force_host_platform_device_count=8")
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
+import sys  # noqa: E402
 
-import os as _os, sys as _sys
-_sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-import numpy as np
+import numpy as np  # noqa: E402
 
-from photorealistic_rendering_using_opencl_tpu.ops.camera_rays import default_camera
+from photorealistic_rendering_using_opencl_tpu.ops.camera_rays import default_camera  # noqa: E402
 from photorealistic_rendering_using_opencl_tpu.parallel.render import (
     default_mesh, render_sharded,
 )
-from photorealistic_rendering_using_opencl_tpu.scene.loader import load_scene
+from photorealistic_rendering_using_opencl_tpu.scene.loader import load_scene  # noqa: E402
+from photorealistic_rendering_using_opencl_tpu.utils.config import (  # noqa: E402
+    enable_compile_cache,
+)
 
 
 def main():
+    enable_compile_cache()
     cfg, scene = load_scene("scenes/cornell_simple.json")
     per_dev = 64 * 64  # fixed pixels per device (weak scaling)
     spp = 4

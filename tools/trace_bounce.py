@@ -1,4 +1,10 @@
-"""Capture a jax.profiler trace of bounce_step and print top device ops."""
+"""Capture a jax.profiler trace of bounce_step and print top device ops.
+
+The trace lands in chiprun_out/bounce_trace.  Usage:
+
+    python tools/trace_bounce.py            # top ops by name
+    DETAIL=1 python tools/trace_bounce.py   # re-read it, by source line
+"""
 from __future__ import annotations
 
 import glob
@@ -8,23 +14,24 @@ import os
 import shutil
 import sys
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import os as _os, sys as _sys
-_sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
 
-import jax
-import jax.numpy as jnp
-import numpy as np
+from photorealistic_rendering_using_opencl_tpu.models import integrator  # noqa: E402
+from photorealistic_rendering_using_opencl_tpu.ops.rng import Sampler  # noqa: E402
+from photorealistic_rendering_using_opencl_tpu.scene.loader import load_scene  # noqa: E402
+from photorealistic_rendering_using_opencl_tpu.utils.config import (  # noqa: E402
+    enable_compile_cache,
+)
 
-from photorealistic_rendering_using_opencl_tpu.models import integrator
-from photorealistic_rendering_using_opencl_tpu.ops.rng import Sampler
-from photorealistic_rendering_using_opencl_tpu.scene.loader import load_scene
-
-TRACE_DIR = "/tmp/bounce_trace"
+TRACE_DIR = "chiprun_out/bounce_trace"
 
 
 def main():
+    enable_compile_cache()
     cfg, scene = load_scene("scenes/cornell.json")
     n = 262144
     rng = np.random.default_rng(0)
@@ -57,7 +64,7 @@ def main():
         trace = json.load(f)
     events = [e for e in trace.get("traceEvents", [])
               if e.get("ph") == "X" and e.get("dur")]
-    # keep device-side lanes (TPU core threads); aggregate by name
+    # aggregate by name
     agg = {}
     for e in events:
         name = e.get("name", "?")
